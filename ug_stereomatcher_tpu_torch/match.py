@@ -1,0 +1,125 @@
+"""Coarse-to-fine iterative matching (mode 1).
+
+Counterpart of ``ug_stereomatcher_tpu/match.py``.  ``match_level`` refines
+one pyramid level: a Python loop over the fixed iteration schedule whose
+body is warp -> direction update -> smoothing chain, each one kernel on
+the card (reference matchlevel body, MatchGPULib.cpp:1743-2412).  The
+blurred left energy G(L^2) is iteration-invariant and is computed once per
+level.  ``match_pyramid`` runs the levels from coarsest to finest and
+upsamples each result to the next level (``matching``,
+MatchGPULib.cpp:1196-1318).
+
+The JAX package's warp tiers exist only because a TPU cannot gather in
+2-D; the port's warp is one exact gather, so it has none.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, List, NamedTuple, Sequence, Tuple
+
+import torch
+
+from ug_stereomatcher_tpu_torch import pyramid as pyr
+from ug_stereomatcher_tpu_torch.config import MatcherConfig, check_supported
+from ug_stereomatcher_tpu_torch.ops.cuda.blur import fused_blur_gaussian
+from ug_stereomatcher_tpu_torch.ops.cuda.direction import (  # noqa: F401
+    direction_maps,
+    fused_direction_update,
+)
+from ug_stereomatcher_tpu_torch.ops.cuda.smooth import fused_smooth_average
+from ug_stereomatcher_tpu_torch.ops.cuda.warp import warp_nearest
+
+LevelBody = Callable[[torch.Tensor, int, float], torch.Tensor]
+
+
+def _level_blurred_l2(left: torch.Tensor) -> torch.Tensor:
+    """G(L^2) with the clamp boundary, hoisted out of the iteration loop
+    (the reference recomputes it every iteration, MatchGPULib.cpp:1809)."""
+    return fused_blur_gaussian(left * left, boundary="clamp")
+
+
+def _make_level_body(left: torch.Tensor, right: torch.Tensor,
+                     blurred_l2: torch.Tensor, cfg: MatcherConfig,
+                     is_coarsest: bool, n_smooth: int) -> LevelBody:
+    """One refinement iteration: ``body(state, m, threshold)`` maps the
+    (3, H, W) state [disp_h, disp_v, conf] to the next one."""
+    consts = cfg.conf_consts
+
+    def body(state: torch.Tensor, m: int, threshold: float) -> torch.Tensor:
+        warped = warp_nearest(right, state[0], state[1])
+        # The coarsest level's first iteration replaces the confidence
+        # instead of blending it (MatchGPULib.cpp:2223-2225).
+        state = fused_direction_update(left, warped, blurred_l2, state,
+                                       threshold, is_coarsest and m == 0,
+                                       consts)
+        # All three planes are smoothed against the same pre-pass
+        # confidence, then averaged (MatchGPULib.cpp:2262-2412).
+        return fused_smooth_average(state, n_smooth)
+
+    return body
+
+
+def match_level(left: torch.Tensor, right: torch.Tensor, disp: torch.Tensor,
+                level_index: int, cfg: MatcherConfig,
+                is_coarsest: bool) -> torch.Tensor:
+    """Refine the (3, H, W) disparity triplet of one pyramid level.
+
+    left, right: (3, H, W) images of the level.  level_index sets the
+    iteration count (22 for i > 5, else (i+1)*2) and the smoothing passes
+    (10 on the two finest levels, else 5)."""
+    check_supported(cfg)
+    mi = cfg.iters_for_level(level_index)
+    n_smooth = cfg.smooth_passes_for_level(level_index)
+    body = _make_level_body(left, right, _level_blurred_l2(left), cfg,
+                            is_coarsest, n_smooth)
+    state = disp
+    for m, threshold in enumerate(cfg.threshold_schedule(mi)):
+        state = body(state, m, threshold)
+    return state
+
+
+class PyramidMatchResult(NamedTuple):
+    """Per-level disparity triplets, index 0 = finest level."""
+    levels: Tuple[torch.Tensor, ...]
+
+
+def level_dims_for_matching(cfg: MatcherConfig, height: int, width: int,
+                            num_levels: int, foveated: bool
+                            ) -> List[Tuple[int, int]]:
+    """Per-level match dimensions (the full-resolution chain in mode 1)."""
+    if foveated:
+        raise _foveated_not_ported()
+    return list(cfg.dims_chain(height, width)[:num_levels])
+
+
+def match_pyramid(left_levels: Sequence[torch.Tensor],
+                  right_levels: Sequence[torch.Tensor], cfg: MatcherConfig,
+                  full_dims: Tuple[int, int],
+                  foveated: bool = False) -> PyramidMatchResult:
+    """Coarse-to-fine loop over a full-resolution pyramid.
+
+    The initial disparity of the coarsest level is zero.  Returns every
+    level's refined triplet; mode 1 uses index 0."""
+    if foveated:
+        raise _foveated_not_ported()
+    n = len(left_levels)
+    height, width = full_dims
+    dims = level_dims_for_matching(cfg, height, width, n, foveated)
+    results: List[torch.Tensor] = [None] * n  # type: ignore[list-item]
+    h, w = dims[n - 1]
+    ref = left_levels[0]
+    disp = torch.zeros((3, h, w), dtype=ref.dtype, device=ref.device)
+    for i in range(n - 1, -1, -1):
+        disp = match_level(left_levels[i], right_levels[i], disp, i, cfg,
+                           is_coarsest=(i == n - 1))
+        results[i] = disp
+        if i > 0:
+            h2, w2 = dims[i - 1]
+            disp = pyr.upsample_to_level(disp, h2, w2, cfg)
+    return PyramidMatchResult(levels=tuple(results))
+
+
+def _foveated_not_ported() -> NotImplementedError:
+    return NotImplementedError(
+        "foveated matching (mode 2) is not ported yet (ROADMAP.md queue 1, "
+        "item 3: mode 2)")

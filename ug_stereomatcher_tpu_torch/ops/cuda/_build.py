@@ -1,0 +1,166 @@
+"""Build, load and count the port's CUDA kernels.
+
+The kernels are CUDA C++ for Hopper (``sm_90a``) under ``csrc/``, compiled
+by ``nvcc`` into one shared library with a plain C interface and loaded
+with ``ctypes`` (no PyTorch headers, so the build takes seconds).  The
+build runs at first use, is keyed on a hash of the sources and the flags,
+and lands in ``_build/`` inside the package, which git ignores.
+
+``--fmad=false`` keeps every multiply and add separately rounded, in the
+order the source writes them: that is what makes the stencils bit-exact
+against their plain PyTorch versions.  Never add ``--use_fast_math``.
+
+Each wrapper adds one to its launch counter where it launches its kernel
+(one count per wrapper call, however many CUDA kernels the call runs).
+"""
+
+from __future__ import annotations
+
+import collections
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+from typing import Dict, List, Optional
+
+import torch
+
+PKG_DIR = Path(__file__).resolve().parents[2]
+CSRC_DIR = PKG_DIR / "csrc"
+BUILD_DIR = PKG_DIR / "_build"
+LIB_NAME = "libugsm_kernels.so"
+
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC")
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+# C entry points: argument types (every pointer and the stream is a
+# c_void_p, so ctypes never truncates them to 32 bits) and int return.
+SIGNATURES = {
+    "ugsm_sep5": [_P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _F, _P],
+    "ugsm_resample_nearest": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I,
+                              _P],
+    "ugsm_warp_nearest": [_P, _P, _P, _P, _I, _I, _I, _P],
+    "ugsm_direction_update": [_P, _P, _P, _P, _P, _P, _I, _I, _F, _I,
+                              _F, _F, _F, _F, _F, _F, _F, _F, _P],
+    "ugsm_smooth_average": [_P, _P, _P, _P, _I, _I, _I, _F, _P],
+}
+
+LAUNCHES: Dict[str, int] = collections.Counter()
+_LIB: Optional[ctypes.CDLL] = None
+
+
+def sources() -> List[Path]:
+    """Every kernel source, sorted: ``csrc/*.cu`` and ``csrc/*.cuh``."""
+    return sorted(list(CSRC_DIR.glob("*.cu")) + list(CSRC_DIR.glob("*.cuh")))
+
+
+def find_nvcc() -> Optional[str]:
+    """nvcc from $CUDA_HOME, $PATH or /usr/local/cuda, else None."""
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    if home and (Path(home) / "bin" / "nvcc").is_file():
+        return str(Path(home) / "bin" / "nvcc")
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = Path("/usr/local/cuda/bin/nvcc")
+    return str(default) if default.is_file() else None
+
+
+def build_command(nvcc: str, out: Path) -> List[str]:
+    """The nvcc command line that builds the library at ``out``."""
+    cu = [str(p) for p in sources() if p.suffix == ".cu"]
+    return [nvcc, *NVCC_FLAGS, f"-I{CSRC_DIR}", "-o", str(out), *cu]
+
+
+def _source_hash() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in sources():
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def build() -> Path:
+    """Compile the library unless a build of these sources exists."""
+    out = BUILD_DIR / _source_hash() / LIB_NAME
+    if out.is_file():
+        return out
+    nvcc = find_nvcc()
+    if nvcc is None:
+        raise RuntimeError(
+            "nvcc not found (looked in $CUDA_HOME/bin, $PATH and "
+            "/usr/local/cuda/bin): the CUDA toolkit is needed to build the "
+            "port's kernels")
+    out.parent.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{LIB_NAME}.{os.getpid()}.tmp")
+    proc = subprocess.run(build_command(nvcc, tmp), capture_output=True,
+                          text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                           f"{proc.stdout}\n{proc.stderr}")
+    os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
+    return out
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built at first use."""
+    global _LIB
+    if _LIB is None:
+        lib = ctypes.CDLL(str(build()))
+        for name, argtypes in SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        lib.ugsm_error_string.argtypes = [ctypes.c_int]
+        lib.ugsm_error_string.restype = ctypes.c_char_p
+        _LIB = lib
+    return _LIB
+
+
+def launch(name: str, counter: str, *args) -> None:
+    """Call C entry ``name`` on PyTorch's current stream, raise on a CUDA
+    error, and count one launch under ``counter``."""
+    lib = library()
+    stream = torch.cuda.current_stream().cuda_stream
+    err = getattr(lib, name)(*args, stream)
+    if err != 0:
+        msg = lib.ugsm_error_string(err).decode()
+        raise RuntimeError(f"{name}: CUDA error {err}: {msg}")
+    LAUNCHES[counter] += 1
+
+
+def reset_launch_counts() -> None:
+    LAUNCHES.clear()
+
+
+def launch_counts() -> Dict[str, int]:
+    return dict(LAUNCHES)
+
+
+def check_planes(name: str, *tensors: torch.Tensor) -> torch.device:
+    """Common wrapper checks: one device, float32, contiguous.  Returns the
+    device; raises for a device type that has neither plain nor kernel."""
+    dev = tensors[0].device
+    for t in tensors:
+        if t.device != dev:
+            raise ValueError(f"{name}: tensors on {t.device} and {dev}")
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name}: expected float32, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: expected contiguous tensors")
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: unsupported device {dev}")
+    if dev.type == "cuda" and dev.index != torch.cuda.current_device():
+        # the kernel launches on the current device
+        raise ValueError(f"{name}: tensors on {dev} but the current CUDA "
+                         f"device is {torch.cuda.current_device()}")
+    return dev
+
+
+def ptr(t: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr())
