@@ -76,6 +76,14 @@ def test_from_reference_round_trips():
     assert dataclasses.asdict(port) == back
 
 
+@pytest.mark.parametrize("interp", ["nearest", "bilinear"])
+def test_interp_modes_are_supported_and_carried(interp):
+    ref = jcfg.MatcherConfig(interp=interp, level_backend="interpret")
+    port = tcfg.MatcherConfig.from_reference(dataclasses.asdict(ref))
+    assert port.interp == interp
+    tcfg.check_supported(port)
+
+
 def test_from_reference_rejects_unknown_fields():
     mapping = dataclasses.asdict(jcfg.MatcherConfig())
     mapping["not_a_field"] = 1
@@ -84,7 +92,7 @@ def test_from_reference_rejects_unknown_fields():
 
 
 @pytest.mark.parametrize("kw,exc", [
-    ({"interp": "bilinear"}, NotImplementedError),
+    ({"interp": "linear"}, ValueError),
     ({"interp": "cubic"}, NotImplementedError),
     ({"interp": "lanczos"}, ValueError),
     ({"early_exit_delta": 0.02}, NotImplementedError),

@@ -6,9 +6,10 @@ card it runs without the JAX test configuration:
 
     python -m pytest --noconftest -q -m gpu tests/test_torch_gpu.py
 
-warp, resample and blur must be bit-exact; so must direction and smooth,
-since the kernels are built with --fmad=false and keep the plain
-versions' term order.
+warp, resample and blur must be bit-exact in both interpolation modes;
+so must direction, smooth and the level-resident kernel, since the
+kernels are built with --fmad=false and keep the plain versions' term
+order.
 """
 
 import numpy as np
@@ -16,8 +17,9 @@ import pytest
 import torch
 
 from ug_stereomatcher_tpu_torch import MatcherConfig, StereoEngine
+from ug_stereomatcher_tpu_torch import scene
 from ug_stereomatcher_tpu_torch.ops.cuda import (
-    _build, blur, direction, resample, smooth, warp)
+    _build, blur, direction, level, resample, smooth, warp)
 
 SCALE = 1.41421356
 CONSTS = (0.3, 0.2, 0.8, 0.9, 0.1)  # non-default on purpose
@@ -72,12 +74,64 @@ def test_resample_bit_exact(cuda, case):
     assert torch.equal(out, resample.resample_static_plain(img, iy, ix, vs))
 
 
+@pytest.mark.parametrize("case", sorted(RESAMPLE_CASES))
+def test_resample_bilinear_bit_exact(cuda, case):
+    shape, (h2, w2), coord_of, vs = RESAMPLE_CASES[case]
+    img = rand(cuda, *shape, hi=4.0)
+    (iy, wy), (ix, wx) = (
+        (torch.from_numpy(a).to(cuda) for a in resample.bilinear_taps(
+            n, m, coord_of)) for n, m in ((h2, shape[1]), (w2, shape[2])))
+    assert_same(resample.resample_static, resample.resample_static_plain,
+                img, iy, ix, vs, wy, wx)
+    out = resample.resample_tex(img, h2, w2, coord_of, vs, "bilinear")
+    assert torch.equal(out, resample.resample_static_plain(img, iy, ix, vs,
+                                                           wy, wx))
+
+
 @pytest.mark.parametrize("spread", [6.0, 60.0, 900.0])
 def test_warp_bit_exact(cuda, spread):
     h, w = 64, 300
     args = (rand(cuda, 3, h, w), rand(cuda, h, w, lo=-spread, hi=spread, seed=1),
             rand(cuda, h, w, lo=-spread / 4, hi=spread / 4, seed=2))
     assert_same(warp.warp_nearest, warp.warp_nearest_plain, *args)
+
+
+@pytest.mark.parametrize("spread", [0.75, 6.0, 900.0])
+def test_warp_bilinear_bit_exact(cuda, spread):
+    h, w = 64, 300
+    args = (rand(cuda, 3, h, w), rand(cuda, h, w, lo=-spread, hi=spread, seed=1),
+            rand(cuda, h, w, lo=-spread / 4, hi=spread / 4, seed=2),
+            "bilinear")
+    assert_same(warp.warp, warp.warp_plain, *args)
+
+
+def _level_inputs(dev, h, w, seed=0):
+    """A textured pair with a 3 px shift and a noisy start state."""
+    left_np, right_np = scene.make_pair(h, w, seed=seed)
+    left, right = (torch.from_numpy(np.moveaxis(a, -1, 0).astype(
+        np.float32)).to(dev).contiguous() for a in (left_np, right_np))
+    state = torch.stack([rand(dev, h, w, lo=1.0, hi=4.0, seed=seed + 1),
+                         rand(dev, h, w, lo=-0.5, hi=0.5, seed=seed + 2),
+                         rand(dev, h, w, lo=0.2, hi=1.0, seed=seed + 3)])
+    return left, right, state
+
+
+@pytest.mark.parametrize("method", ["nearest", "bilinear"])
+@pytest.mark.parametrize("h,w,replace", [(34, 53, True), (101, 153, False)])
+def test_level_resident_bit_exact(cuda, method, h, w, replace):
+    cfg = MatcherConfig(level_cutoff=6)
+    left, right, state = _level_inputs(cuda, h, w)
+    thresholds = cfg.threshold_schedule(6)
+    assert_same(level.level_resident_match, level.level_resident_match_plain,
+                left, right, state, thresholds, 5, replace, CONSTS, method)
+
+
+def test_level_resident_grid_too_large_raises(cuda):
+    left, right, state = _level_inputs(cuda, 34, 53)
+    too_many = level.max_coresident_blocks("nearest") + 1
+    with pytest.raises(RuntimeError, match="ugsm_level_resident"):
+        level.level_resident_match(left, right, state, (1.0,), 5, True,
+                                   grid_blocks=too_many)
 
 
 @pytest.mark.parametrize("threshold,replace", [(1.0, False), (0.55, True)])
@@ -105,21 +159,27 @@ def test_each_wrapper_counts_one_launch_per_call(cuda):
     blur.fused_blur_gaussian(x)
     smooth.fused_smooth_average(x, 3)
     warp.warp_nearest(x, x[0], x[1])
+    warp.warp(x, x[0], x[1], "bilinear")
     direction.fused_direction_update(x, x, x, x, 1.0, False)
     resample.resample_tex(x, 10, 20, lambda v: v * 2.0)
+    resample.resample_tex(x, 10, 20, lambda v: v * 2.0, method="bilinear")
+    level.level_resident_match(x, x, x, (1.0, 0.5), 3, True)
     torch.cuda.synchronize()
-    assert _build.launch_counts() == {"blur": 1, "smooth": 1, "warp": 1,
-                                      "direction": 1, "resample": 1}
+    assert _build.launch_counts() == {
+        "blur": 1, "smooth": 1, "warp": 1, "warp_bilinear": 1,
+        "direction": 1, "resample": 1, "resample_bilinear": 1, "level": 1}
 
 
-def test_engine_on_card_matches_plain_engine(cuda):
+@pytest.mark.parametrize("interp", ["nearest", "bilinear"])
+def test_engine_on_card_matches_plain_engine(cuda, interp):
     rng = np.random.RandomState(21)
     base = rng.rand(96, 136, 3).astype(np.float32) * 255
     for _ in range(3):   # smooth the texture so correlation is informative
         base = (base + np.roll(base, 1, 0) + np.roll(base, 1, 1)) / 3
     left, right = base[:, 4:132], base[:, 2:130]   # shift of 2 px
-    gpu = StereoEngine(MatcherConfig(), device="cuda").match(left, right)
-    cpu = StereoEngine(MatcherConfig(), device="cpu").match(left, right)
+    cfg = MatcherConfig(interp=interp)
+    gpu = StereoEngine(cfg, device="cuda").match(left, right)
+    cpu = StereoEngine(cfg, device="cpu").match(left, right)
     d = (gpu.triplet.cpu() - cpu.triplet).abs().numpy()
     assert np.median(d) < 1e-3 and (d > 0.02).mean() < 0.02
     assert abs(np.median(gpu.disparity_h.cpu().numpy()[12:-12, 12:-12]) - 2) < 0.5

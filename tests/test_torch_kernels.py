@@ -5,6 +5,14 @@ against the Pallas kernel run in interpret mode (as
 tests/test_pallas_kernels.py runs it).  Tolerances:
 
 * warp and resample (nearest gathers): exact;
+* bilinear warp: rtol=atol=1e-6 (the JAX package's bound for its
+  bilinear warp kernel, tests/test_pallas_kernels.py:74);
+* bilinear resample: against the interpret-mode two-hot kernel (the same
+  float64 host taps, but the weighted sums run through XLA:CPU's float32
+  matmul, which rounds differently) rtol=atol=2e-6; the largest
+  difference measured on these inputs is 9.5e-7, about 2 ulp of values
+  below 6 (the subsample by 2 is exact).  Against the JAX float32
+  ``tex_gather`` path 5e-5 (tests/test_pallas_kernels.py:666);
 * blur: rtol=atol=1e-6 (the <= 1 ulp FMA contract, ops/pallas/blur.py);
 * smooth: rtol=atol=1e-5;
 * direction: rtol=atol=1e-5 against the JAX package's unfused chain
@@ -85,10 +93,40 @@ def test_resample_matches_pallas_exactly(case):
     np.testing.assert_array_equal(out, ref)
 
 
-def test_resample_bilinear_raises():
+def test_resample_cubic_raises():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         resample.resample_tex(torch.zeros(3, 8, 8), 4, 4, lambda v: v * 2,
-                              method="bilinear")
+                              method="cubic")
+
+
+def test_resample_bilinear_matches_pallas():
+    """One interpret-mode case over the three pyramid resamples."""
+    for case in sorted(RESAMPLE_CASES):
+        shape, (h2, w2), coord_of, vs = RESAMPLE_CASES[case]
+        img = rand(*shape, scale=4.0)
+        ref = np.asarray(p_resample(jnp.asarray(img), h2, w2, coord_of, vs,
+                                    "bilinear", interpret=True))
+        out = resample.resample_tex(t(img), h2, w2, coord_of, vs,
+                                    "bilinear").numpy()
+        np.testing.assert_allclose(out, ref, rtol=2e-6, atol=2e-6,
+                                   err_msg=case)
+
+
+@pytest.mark.parametrize("case", sorted(RESAMPLE_CASES))
+def test_resample_bilinear_matches_jax_tex_gather(case):
+    shape, (h2, w2), _, vs = RESAMPLE_CASES[case]
+    img = rand(*shape, scale=4.0)
+    if case == "upsample":
+        ref = J.upsample_disp(jnp.asarray(img), h2, w2, 1.0 / SCALE, vs,
+                              "bilinear")
+        coord_of = lambda v: v * (1.0 / SCALE)  # noqa: E731
+    else:
+        scale = SCALE if case == "subsample_sqrt2" else 2.0
+        ref = J.subsample(jnp.asarray(img), h2, w2, scale, "bilinear")
+        coord_of = lambda v: v * scale  # noqa: E731
+    out = resample.resample_tex(t(img), h2, w2, coord_of, vs,
+                                "bilinear").numpy()
+    np.testing.assert_allclose(out, np.asarray(ref), rtol=5e-5, atol=5e-5)
 
 
 # --------------------------------------------------------------- warp
@@ -113,6 +151,18 @@ def test_warp_matches_pallas_level_warp_exactly(field):
         interpret=True))
     out = warp.warp_nearest(t(img), t(dh), t(dv)).numpy()
     np.testing.assert_array_equal(out, ref)
+
+
+@pytest.mark.parametrize("field", sorted(WARP_FIELDS))
+def test_warp_bilinear_matches_jax_gather(field):
+    h, w = 32, 384
+    img = rand(3, h, w)
+    fh, fv = WARP_FIELDS[field]
+    dh, dv = fh(h, w).astype(np.float32), fv(h, w).astype(np.float32)
+    ref = np.asarray(J.warp_by_disparity(jnp.asarray(img), jnp.asarray(dh),
+                                         jnp.asarray(dv), "bilinear"))
+    out = warp.warp(t(img), t(dh), t(dv), "bilinear").numpy()
+    np.testing.assert_allclose(out, ref, rtol=1e-6, atol=1e-6)
 
 
 def test_warp_checks_shapes():
@@ -193,6 +243,8 @@ def test_cpu_tensors_take_plain_version_and_count_no_launch():
     blur.fused_blur_gaussian(x, "clamp")
     smooth.fused_smooth_average(x, 2)
     warp.warp_nearest(x, x[0], x[1])
+    warp.warp(x, x[0], x[1], "bilinear")
+    resample.resample_tex(x, 6, 10, lambda v: v * 2.0, method="bilinear")
     assert _build.launch_counts() == {}
 
 
@@ -210,20 +262,24 @@ def test_wrappers_reject_bad_tensors(bad):
 
 
 def test_build_command_targets_sm90a_from_csrc_only():
-    cmd = _build.build_command("nvcc", _build.BUILD_DIR / "x.so")
-    assert "arch=compute_90a,code=sm_90a" in cmd
-    assert "--fmad=false" in cmd
-    assert not any("fast_math" in a or "fast-math" in a for a in cmd)
-    srcs = [a for a in cmd if a.endswith((".cu", ".cuh"))]
+    cmds = _build.build_command("nvcc", _build.BUILD_DIR / "x.so")
+    for cmd in cmds:   # one compile per source, then the link
+        assert "arch=compute_90a,code=sm_90a" in cmd
+        assert "--fmad=false" in cmd
+        assert not any("fast_math" in a or "fast-math" in a for a in cmd)
+    assert cmds[-1][-len(cmds) + 1:] == [c[-1] for c in cmds[:-1]]
+    srcs = [a for cmd in cmds for a in cmd if a.endswith((".cu", ".cuh"))]
+    assert len(srcs) == len(cmds) - 1
     assert {p.rsplit("/", 1)[-1] for p in srcs} == {
-        "blur.cu", "direction.cu", "resample.cu", "smooth.cu", "warp.cu"}
+        "blur.cu", "direction.cu", "level.cu", "resample.cu", "smooth.cu",
+        "warp.cu"}
     for s in srcs:
         assert s.startswith(str(_build.CSRC_DIR) + "/")
 
 
 def test_build_hash_covers_every_source():
     names = {p.name for p in _build.sources()}
-    assert "common.cuh" in names and len(names) == 6
+    assert {"common.cuh", "stencils.cuh"} <= names and len(names) == 8
 
 
 def test_missing_nvcc_raises_clear_error(monkeypatch, tmp_path):

@@ -1,8 +1,11 @@
 """The port's pyramid, level engine and StereoEngine against the JAX
-package on the CPU.  Pyramids and upsamples are bit-exact; levels are
-compared in lockstep (each level from the same input state) under the
+package on the CPU.  Nearest pyramids and upsamples are bit-exact; levels
+are compared in lockstep (each level from the same input state) under the
 repo's quantile rule, because a nearest warp flips gather indices on
-float noise (tests/test_level_kernel.py:51-57)."""
+float noise (tests/test_level_kernel.py:51-57).  Bilinear pyramids and
+upsamples take the host float64 taps on every level, where the JAX
+package's CPU path takes its float32 ``tex_gather``: they agree to 5e-5
+(tests/test_pallas_kernels.py:666)."""
 
 import dataclasses
 
@@ -13,6 +16,7 @@ import torch
 import jax.numpy as jnp
 
 from tests.gold import gold_ops
+from ug_stereomatcher_tpu import StereoEngine as JaxEngine
 from ug_stereomatcher_tpu import match as jmatch
 from ug_stereomatcher_tpu import pyramid as jpyr
 from ug_stereomatcher_tpu.config import MatcherConfig as JaxConfig
@@ -69,6 +73,21 @@ def test_upsample_to_level_bit_exact(scale_conf, hw, out):
     ours = tpyr.upsample_to_level(torch.from_numpy(d), *out, tcfg).numpy()
     ref = np.asarray(jpyr.upsample_to_level(jnp.asarray(d), *out, jcfg))
     np.testing.assert_array_equal(ours, ref)
+
+
+@pytest.mark.parametrize("h,w", [(48, 64), (37, 53)])
+def test_build_pyramid_pair_bilinear_close(h, w):
+    jcfg, tcfg = configs(interp="bilinear")
+    left, right = synthetic_pair(h, w, shift_x=1)
+    n = tcfg.num_levels(h, w)
+    jl, jr = jpyr.build_pyramid_pair(jnp.asarray(left), jnp.asarray(right),
+                                     jcfg, n)
+    tl, tr = tpyr.build_pyramid_pair(torch.from_numpy(left),
+                                     torch.from_numpy(right), tcfg, n)
+    for a, b in zip(tl + tr, jl + jr):
+        assert tuple(a.shape) == b.shape
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=5e-5,
+                                   atol=5e-5)
 
 
 @pytest.mark.parametrize("level_index,is_coarsest", [(0, False), (1, True)])
@@ -132,6 +151,23 @@ def test_match_pyramid_free_running_close():
     assert np.median(d) < 1e-3 and (d > 0.02).mean() < 0.02
 
 
+def test_engine_bilinear_matches_jax_engine():
+    """Bilinear end to end, free-running, against the JAX engine, under
+    the quantile rule of the nearest free-running test (the same scene
+    size: larger free-running scenes diverge in either mode)."""
+    jcfg, tcfg = configs(interp="bilinear")
+    h, w = 48, 64
+    left, right = (np.moveaxis(x, 0, -1)
+                   for x in synthetic_pair(h, w, shift_x=2))
+    ref = JaxEngine(jcfg).match(left, right)
+    out = StereoEngine(tcfg, device="cpu").match(left, right)
+    d = np.abs(out.triplet.numpy() - np.stack(
+        [np.asarray(ref.disparity_h), np.asarray(ref.disparity_v),
+         np.asarray(ref.confidence)]))
+    assert np.median(d) < 1e-3 and (d > 0.02).mean() < 0.02
+    assert abs(np.median(out.disparity_h.numpy()[8:-8, 8:-8]) - 2) < 0.1
+
+
 @pytest.mark.parametrize("axis,shift", [("h", 2), ("v", 1)])
 def test_engine_recovers_constant_shift(axis, shift):
     h, w = 96, 128
@@ -170,7 +206,7 @@ def test_engine_cuda_without_card_raises(monkeypatch):
         StereoEngine(MatcherConfig(), device="cuda")
 
 
-@pytest.mark.parametrize("kw", [{"interp": "bilinear"},
+@pytest.mark.parametrize("kw", [{"interp": "cubic"},
                                 {"early_exit_delta": 0.02}])
 def test_engine_unported_modes_raise(kw):
     with pytest.raises(NotImplementedError, match="ROADMAP"):

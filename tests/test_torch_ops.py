@@ -1,7 +1,9 @@
 """The port's plain ops against ``ug_stereomatcher_tpu.ops`` on the same
-numpy inputs.  Nearest gathers, shifts and resamples are exact; blurs and
-pointwise ops are held to rtol=atol=1e-6 (the <= 1 ulp FMA contract of
-the JAX blur, ops/pallas/blur.py:12-18)."""
+numpy inputs.  Nearest gathers, shifts and resamples are exact; blurs,
+pointwise ops and the bilinear gathers are held to rtol=atol=1e-6 (the
+<= 1 ulp FMA contract of the JAX blur, ops/pallas/blur.py:12-18, and the
+JAX package's own bound for its bilinear warp,
+tests/test_pallas_kernels.py:74)."""
 
 import numpy as np
 import pytest
@@ -11,6 +13,7 @@ import jax.numpy as jnp
 
 from ug_stereomatcher_tpu import ops as J
 from ug_stereomatcher_tpu.config import MOVES, average_kernel, gaussian_kernel
+from ug_stereomatcher_tpu.ops.pallas.resample import _bilinear_taps
 from ug_stereomatcher_tpu_torch.ops import conv as tconv
 from ug_stereomatcher_tpu_torch.ops import pointwise as tpw
 from ug_stereomatcher_tpu_torch.ops import resample as trs
@@ -130,12 +133,75 @@ def test_tex_gather_exact():
                                   ref(J.tex_gather, img, x, y))
 
 
-def test_bilinear_raises():
+def test_cubic_raises():
     img = torch.zeros(3, 4, 4)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        trs.warp_by_disparity(img, img[0], img[0], "bilinear")
+        trs.warp_by_disparity(img, img[0], img[0], "cubic")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        trs.subsample(img, 2, 2, 2.0, "bilinear")
+        trs.subsample(img, 2, 2, 2.0, "cubic")
+
+
+@pytest.mark.parametrize("field", sorted(WARP_FIELDS))
+def test_warp_by_disparity_bilinear(field):
+    h, w = 21, 33
+    rng = np.random.RandomState(22)
+    img = rand(3, h, w, seed=23, hi=255.0)
+    dh, dv = (a.astype(np.float32) for a in WARP_FIELDS[field](h, w, rng))
+    np.testing.assert_allclose(
+        port(trs.warp_by_disparity, img, dh, dv, method="bilinear"),
+        ref(J.warp_by_disparity, img, dh, dv, method="bilinear"), **TOL)
+
+
+def test_tex_gather_bilinear():
+    img = rand(2, 10, 12, seed=24, hi=4.0)
+    rng = np.random.RandomState(25)
+    x = (rng.rand(5, 7) * 16 - 2).astype(np.float32)
+    y = (rng.rand(5, 7) * 14 - 2).astype(np.float32)
+    np.testing.assert_allclose(port(trs.tex_gather, img, x, y, "bilinear"),
+                               ref(J.tex_gather, img, x, y, "bilinear"), **TOL)
+
+
+@pytest.mark.parametrize("scale,h2,w2", [
+    (SCALE, int(97 / SCALE), int(211 / SCALE)),
+    (2.0, 48, 105),
+])
+def test_subsample_bilinear(scale, h2, w2):
+    x = rand(6, 97, 211, seed=26, hi=255.0)
+    kw = dict(out_h=h2, out_w=w2, scale=scale, method="bilinear")
+    np.testing.assert_allclose(port(trs.subsample, x, **kw),
+                               ref(J.subsample, x, **kw), **TOL)
+
+
+@pytest.mark.parametrize("h,w,h2,w2", [(34, 49, 48, 70), (9, 13, 13, 18)])
+def test_upsample_disp_bilinear(h, w, h2, w2):
+    d = rand(3, h, w, seed=27, lo=-4.0, hi=4.0)
+    kw = dict(out_h=h2, out_w=w2, scale=1.0 / SCALE, value_scale=SCALE,
+              method="bilinear")
+    np.testing.assert_allclose(port(trs.upsample_disp, d, **kw),
+                               ref(J.upsample_disp, d, **kw), **TOL)
+
+
+def test_resample_coords_window_bilinear():
+    d = rand(3, 30, 40, seed=28)
+    kw = dict(out_h=12, out_w=15, coord_of=lambda t: t / SCALE,
+              value_scale=SCALE, method="bilinear", row_off=9, col_off=13)
+    np.testing.assert_allclose(port(trs.resample_coords, d, **kw),
+                               ref(J.resample.resample_coords, d, **kw), **TOL)
+
+
+@pytest.mark.parametrize("n_out,n_in,coord", [
+    (68, 97, lambda t: t * SCALE),       # subsample, collapse at the end
+    (48, 97, lambda t: t * 2.0),
+    (97, 68, lambda t: t / SCALE),       # upsample, collapse at both ends
+    (3, 2, lambda t: t * 0.4),
+])
+def test_bilinear_taps_equal_jax(n_out, n_in, coord):
+    i0, w = trs.bilinear_taps(n_out, n_in, coord)
+    j0, jw = _bilinear_taps(n_out, n_in, coord)
+    assert i0.dtype == j0.dtype == np.int32 and w.dtype == jw.dtype
+    np.testing.assert_array_equal(i0, j0)
+    np.testing.assert_array_equal(w, jw)
+    assert ((0 <= i0) & (i0 < n_in)).all()
 
 
 def test_correlation_ratio_with_zero_denominators():

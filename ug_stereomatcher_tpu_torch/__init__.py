@@ -1,9 +1,10 @@
 """PyTorch + CUDA port of ug_stereomatcher_tpu for one NVIDIA H100.
 
-Mode 1 (full-resolution two-axis disparity) runs end to end: the pyramid
-blur and resample, the warp, the fused direction update and the
-smoothing chain are hand-written CUDA kernels for Hopper (``csrc/``),
-built with nvcc at first use.  CPU tensors take each kernel's plain
+Mode 1 (full-resolution two-axis disparity, nearest or bilinear) runs end
+to end: the pyramid blur and resample, the warp, the fused direction
+update, the smoothing chain and the level-resident matcher of the coarse
+levels are hand-written CUDA kernels for Hopper (``csrc/``), built with
+nvcc at first use.  CPU tensors take each kernel's plain
 PyTorch version.  The package imports torch and numpy, never jax.
 """
 

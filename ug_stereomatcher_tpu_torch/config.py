@@ -36,25 +36,30 @@ MOVES: Tuple[Tuple[int, int], ...] = ((-1, 0), (1, 0), (0, -1), (0, 1),
 
 # MatcherConfig fields of the JAX package that only tune its TPU kernels
 # (warp windows and tiers, the stencil size gate, the level-resident
-# program).  The port has no such knobs: its warp is one exact gather.
+# program).  The port has no such knobs: its warp is one exact gather, and
+# its level-resident gate is one module constant (match.py).
 TPU_ONLY_FIELDS = frozenset({
     "warp_backend", "warp_max_dy", "warp_max_dx", "warp_overflow_guard",
     "warp_dynamic", "stencil_min_pixels", "level_backend",
 })
 
 
+INTERP_METHODS = ("nearest", "bilinear")
+
+
 def unsupported_interp(method: str) -> Exception:
     """The error for an interpolation mode the port does not run."""
-    if method in ("bilinear", "cubic"):
+    if method == "cubic":
         return NotImplementedError(
-            f"interp={method!r} is not ported yet (ROADMAP.md queue 1, "
-            f"item 1: bilinear warp and resample); use interp='nearest'")
+            "interp='cubic' is not ported yet (ROADMAP.md queue 1, item 5: "
+            "the geometry resizes that use it); use 'nearest' or "
+            "'bilinear'")
     return ValueError(f"unknown interp {method!r}")
 
 
 def check_supported(cfg: "MatcherConfig") -> None:
     """Raise for configuration the port does not run yet."""
-    if cfg.interp != "nearest":
+    if cfg.interp not in INTERP_METHODS:
         raise unsupported_interp(cfg.interp)
     if cfg.early_exit_delta is not None:
         raise NotImplementedError(
@@ -111,7 +116,8 @@ class MatcherConfig:
     threshold_decay_window: int = 7
 
     # Sampling: the reference's textures use point sampling with clamp
-    # addressing, which "nearest" reproduces.
+    # addressing, which "nearest" reproduces; "bilinear" is the quality
+    # mode (four taps, weights from coord - 0.5 computed in float32).
     interp: str = "nearest"
 
     # Upsampling scales all three planes, confidence included (a kept

@@ -14,8 +14,9 @@
 // halo bookkeeping across passes is needed; the average runs as the
 // shared-memory separable kernel of blur.cu with taps (0, a, a, a, 0).
 // The term order is that of ops/smooth.py (centre, left, right, up,
-// down; num / den), not the TPU kernel's reciprocal form.
-#include "common.cuh"
+// down; num / den), not the TPU kernel's reciprocal form; the per-pixel
+// pass (smooth_px in stencils.cuh) is shared with level.cu.
+#include "stencils.cuh"
 
 namespace {
 
@@ -26,34 +27,8 @@ __global__ void __launch_bounds__(kThreads)
                        int H, int W) {
   const int x = blockIdx.x * kThreads + threadIdx.x;
   if (x >= W) return;
-  const size_t plane = (size_t)H * W;
-  const float* __restrict__ cf = in + 2 * plane;
   for (int r = blockIdx.y; r < H; r += gridDim.y) {
-    const size_t p = (size_t)r * W + x;
-    if (r == 0 || x == 0) {
-      for (int c = 0; c < 3; ++c) out[c * plane + p] = in[c * plane + p];
-      continue;
-    }
-    const size_t pl = p - 1;
-    const size_t pr = (size_t)r * W + (x + 1 < W ? x + 1 : W - 1);
-    const size_t pu = p - W;
-    const size_t pd = (size_t)(r + 1 < H ? r + 1 : H - 1) * W + x;
-    const float cc = cf[p], cl = cf[pl], cr = cf[pr], cu = cf[pu],
-                cd = cf[pd];
-    float den = cc;
-    den = den + cl;
-    den = den + cr;
-    den = den + cu;
-    den = den + cd;
-    for (int c = 0; c < 3; ++c) {
-      const float* __restrict__ v = in + c * plane;
-      float num = v[p] * cc;
-      num = num + v[pl] * cl;
-      num = num + v[pr] * cr;
-      num = num + v[pu] * cu;
-      num = num + v[pd] * cd;
-      out[c * plane + p] = num / den;
-    }
+    ugsm::smooth_px<ugsm::LdPlain>(in, out, H, W, r, x);
   }
 }
 

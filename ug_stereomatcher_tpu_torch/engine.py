@@ -67,13 +67,18 @@ class StereoEngine:
 
     An entry point returns once the device has finished its work, so the
     recorded time is completion latency, not enqueue time.
+    ``resident_max_pixels`` is the level-resident gate of
+    match.match_level (None: LEVEL_RESIDENT_MAX_PIXELS; 0: every level
+    runs per iteration).
     """
 
     def __init__(self, config: Optional[MatcherConfig] = None,
-                 device: str | torch.device = "cuda"):
+                 device: str | torch.device = "cuda",
+                 resident_max_pixels: Optional[int] = None):
         self.config = config or MatcherConfig()
         check_supported(self.config)
         self.device = resolve_device(device)
+        self.resident_max_pixels = resident_max_pixels
         self.timings = Timings()
         self.metrics: Dict[str, object] = {}
 
@@ -101,6 +106,7 @@ class StereoEngine:
         cfg = self.config
         n = cfg.num_levels(height, width)
         lp, rp = pyr.build_pyramid_pair(left, right, cfg, n)
-        res = match_mod.match_pyramid(lp, rp, cfg, (height, width),
-                                      foveated=False)
+        res = match_mod.match_pyramid(
+            lp, rp, cfg, (height, width), foveated=False,
+            resident_max_pixels=self.resident_max_pixels)
         return res.levels[0]

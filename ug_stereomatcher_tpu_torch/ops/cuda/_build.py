@@ -1,10 +1,11 @@
 """Build, load and count the port's CUDA kernels.
 
 The kernels are CUDA C++ for Hopper (``sm_90a``) under ``csrc/``, compiled
-by ``nvcc`` into one shared library with a plain C interface and loaded
-with ``ctypes`` (no PyTorch headers, so the build takes seconds).  The
-build runs at first use, is keyed on a hash of the sources and the flags,
-and lands in ``_build/`` inside the package, which git ignores.
+by ``nvcc`` (one process per source, started together) and linked into
+one shared library with a plain C interface, loaded with ``ctypes`` (no
+PyTorch headers, so the build takes seconds).  The build runs at first
+use, is keyed on a hash of the sources and the flags, and lands in
+``_build/`` inside the package, which git ignores.
 
 ``--fmad=false`` keeps every multiply and add separately rounded, in the
 order the source writes them: that is what makes the stencils bit-exact
@@ -12,6 +13,8 @@ against their plain PyTorch versions.  Never add ``--use_fast_math``.
 
 Each wrapper adds one to its launch counter where it launches its kernel
 (one count per wrapper call, however many CUDA kernels the call runs).
+The nearest and bilinear forms of warp and resample count under their own
+names (``warp`` / ``warp_bilinear``, ``resample`` / ``resample_bilinear``).
 """
 
 from __future__ import annotations
@@ -33,21 +36,32 @@ BUILD_DIR = PKG_DIR / "_build"
 LIB_NAME = "libugsm_kernels.so"
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "--fmad=false", "-Xcompiler", "-fPIC")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
-# C entry points: argument types (every pointer and the stream is a
-# c_void_p, so ctypes never truncates them to 32 bits) and int return.
+_PI = ctypes.POINTER(ctypes.c_int)     # host int out-parameter
+_PF = ctypes.POINTER(ctypes.c_float)   # host float array
+# C entry points: argument types (every device pointer and the stream is
+# a c_void_p, so ctypes never truncates them to 32 bits) and int return.
 SIGNATURES = {
     "ugsm_sep5": [_P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _F, _P],
     "ugsm_resample_nearest": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I,
                               _P],
-    "ugsm_warp_nearest": [_P, _P, _P, _P, _I, _I, _I, _P],
+    "ugsm_resample_bilinear": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                               _F, _I, _P],
+    "ugsm_warp": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "ugsm_direction_update": [_P, _P, _P, _P, _P, _P, _I, _I, _F, _I,
                               _F, _F, _F, _F, _F, _F, _F, _F, _P],
     "ugsm_smooth_average": [_P, _P, _P, _P, _I, _I, _I, _F, _P],
+    "ugsm_level_resident": [_P, _P, _P, _P, _P, _P, _PF, _I, _I, _I, _I,
+                            _I, _I, _F, _F, _F, _F, _F, _F, _F, _F, _F, _I,
+                            _P],
+}
+# Host queries (no stream, no launch).
+QUERIES = {
+    "ugsm_level_max_grid": [_I, _PI],   # (bilinear, out: max grid)
 }
 
 LAUNCHES: Dict[str, int] = collections.Counter()
@@ -71,10 +85,34 @@ def find_nvcc() -> Optional[str]:
     return str(default) if default.is_file() else None
 
 
-def build_command(nvcc: str, out: Path) -> List[str]:
-    """The nvcc command line that builds the library at ``out``."""
-    cu = [str(p) for p in sources() if p.suffix == ".cu"]
-    return [nvcc, *NVCC_FLAGS, f"-I{CSRC_DIR}", "-o", str(out), *cu]
+def build_command(nvcc: str, out: Path) -> List[List[str]]:
+    """The nvcc command lines that build the library at ``out``: one
+    compile per ``.cu`` source (run together), then the link."""
+    objs, cmds = [], []
+    for src in sources():
+        if src.suffix != ".cu":
+            continue
+        obj = out.with_name(f"{out.name}.{src.stem}.o")
+        cmds.append([nvcc, *NVCC_FLAGS, f"-I{CSRC_DIR}", "-c", str(src),
+                     "-o", str(obj)])
+        objs.append(str(obj))
+    cmds.append([nvcc, *NVCC_FLAGS, "-shared", "-o", str(out), *objs])
+    return cmds
+
+
+def _run_all(cmds: List[List[str]]) -> None:
+    """Run the commands together; raise with the compiler's output if any
+    fails."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    failed = []
+    for c, p in zip(cmds, procs):
+        log, _ = p.communicate()
+        if p.returncode != 0:
+            failed.append(f"{' '.join(c)}\n-> {p.returncode}\n{log}")
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
 
 
 def _source_hash() -> str:
@@ -98,11 +136,9 @@ def build() -> Path:
             "port's kernels")
     out.parent.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{LIB_NAME}.{os.getpid()}.tmp")
-    proc = subprocess.run(build_command(nvcc, tmp), capture_output=True,
-                          text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{proc.stdout}\n{proc.stderr}")
+    cmds = build_command(nvcc, tmp)
+    _run_all(cmds[:-1])   # one nvcc per source, all at once
+    _run_all(cmds[-1:])   # link
     os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
     return out
 
@@ -112,7 +148,7 @@ def library() -> ctypes.CDLL:
     global _LIB
     if _LIB is None:
         lib = ctypes.CDLL(str(build()))
-        for name, argtypes in SIGNATURES.items():
+        for name, argtypes in {**SIGNATURES, **QUERIES}.items():
             fn = getattr(lib, name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
@@ -122,15 +158,19 @@ def library() -> ctypes.CDLL:
     return _LIB
 
 
+def check(name: str, err: int) -> None:
+    """Raise RuntimeError for a nonzero CUDA error code of C entry ``name``."""
+    if err != 0:
+        msg = library().ugsm_error_string(err).decode()
+        raise RuntimeError(f"{name}: CUDA error {err}: {msg}")
+
+
 def launch(name: str, counter: str, *args) -> None:
     """Call C entry ``name`` on PyTorch's current stream, raise on a CUDA
     error, and count one launch under ``counter``."""
     lib = library()
     stream = torch.cuda.current_stream().cuda_stream
-    err = getattr(lib, name)(*args, stream)
-    if err != 0:
-        msg = lib.ugsm_error_string(err).decode()
-        raise RuntimeError(f"{name}: CUDA error {err}: {msg}")
+    check(name, getattr(lib, name)(*args, stream))
     LAUNCHES[counter] += 1
 
 
