@@ -21,9 +21,8 @@ Phases (any failure exits non-zero before the last line is printed):
    count of every kernel against the count the config implies, first-call
    and warm latency, peak device memory, and the kernel time by name over
    one warm match (torch.profiler) with the device's busy share; then
-   the warm nearest latency at five level-resident gates, in alternating
-   order, and levels 5-13 of the nearest match timed level-resident
-   against per iteration;
+   levels 5-13 of the nearest match timed level-resident against per
+   iteration;
 4. lockstep: pyramid level 4 (815 x 1231) refined from one input state
    by the kernels and by the plain versions on the card, held to the
    repo's quantile rule (q99 <= 2e-3, max <= 0.05);
@@ -165,6 +164,24 @@ def conv2d_blur(x):
     return lambda: F.conv2d(xb, weight, padding=2, groups=c)
 
 
+def interpolate_resample(src, scale: float, out_hw, method: str):
+    """F.interpolate of the same subsample by ``scale`` (texel centres,
+    clamp addressing: "nearest-exact" floors (j + 0.5) * scale as the
+    nearest taps do; "bilinear" without align_corners takes the same
+    taps, its coordinates rounded in float32), one PyTorch call; None
+    where its output shape is not the kernel's."""
+    import torch.nn.functional as F
+
+    mode = "nearest-exact" if method == "nearest" else "bilinear"
+    extra = {} if method == "nearest" else {"align_corners": False}
+    x = src[None]
+
+    def call():
+        return F.interpolate(x, scale_factor=1.0 / scale, mode=mode,
+                             recompute_scale_factor=False, **extra)
+    return call if tuple(call().shape[-2:]) == tuple(out_hw) else None
+
+
 def compare(report: dict, name: str, tag: str, kernel, plain, args,
             rule: str = "exact", work=None, library=None,
             timed: bool = True) -> None:
@@ -260,11 +277,12 @@ def check_kernels(dev, cfg, report: dict) -> None:
         for method, name in (("nearest", "resample"),
                              ("bilinear", "resample_bilinear")):
             bil = method == "bilinear"
-            for src, (oh, ow), coord_of, vs in (
-                    (stacked, (h1, w1), lambda t: t * cfg.scale, 1.0),
-                    (stacked, (h2, w2), lambda t: t * 2.0, 1.0),
-                    (up_src, (h, w), lambda t: t * (1.0 / cfg.scale),
-                     cfg.scale)):
+            for src, (oh, ow), s, vs in (
+                    (stacked, (h1, w1), cfg.scale, 1.0),
+                    (stacked, (h2, w2), 2.0, 1.0),
+                    (up_src, (h, w), 1.0 / cfg.scale, cfg.scale)):
+                def coord_of(t, s=s):
+                    return t * s
                 if bil:
                     (iy, wy), (ix, wx) = (
                         resample.bilinear_taps(oh, src.shape[1], coord_of),
@@ -278,10 +296,14 @@ def check_kernels(dev, cfg, report: dict) -> None:
                 args = (src, torch.from_numpy(iy).to(dev),
                         torch.from_numpy(ix).to(dev), vs, *weights)
                 per_out = (12 if bil else 0) + (vs != 1.0)
+                # the value-scaled upsample is two PyTorch calls, not one
+                library = (interpolate_resample(src, s, (oh, ow), method)
+                           if vs == 1.0 else None)
                 compare(report, name, tag, resample.resample_static,
                         resample.resample_static_plain, args,
                         work=(taps_bytes(src, oh, ow, iy, ix, bil),
-                              src.shape[0] * oh * ow * per_out))
+                              src.shape[0] * oh * ow * per_out),
+                        library=library)
         for method, name in (("nearest", "warp"),
                              ("bilinear", "warp_bilinear")):
             compare(report, name, tag, warp.warp, warp.warp_plain,
@@ -465,37 +487,6 @@ def profile_match(eng, left, right, warm_s: float, label: str) -> dict:
             "busy_share": busy_ms / (warm_s * 1e3), "kernels": rows}
 
 
-def gate_sweep(dev, cfg, left, right, report: dict, rounds: int = 8) -> None:
-    """Phase 3c: the warm 16 MP nearest latency at several level-resident
-    gates, one match per gate per round, the order of the gates reversed
-    every other round (host clock around a synchronised call)."""
-    from ug_stereomatcher_tpu_torch import StereoEngine
-
-    gates = (0, 64 * 1024, 128 * 1024, 256 * 1024, 512 * 1024)
-    engines = {g: StereoEngine(cfg, device=dev, resident_max_pixels=g)
-               for g in gates}
-    times = {g: [] for g in gates}
-    for g in gates:  # warm every route once
-        engines[g].match(left, right)
-    torch.cuda.synchronize()
-    for r in range(rounds):
-        for g in (gates if r % 2 == 0 else gates[::-1]):
-            t0 = time.perf_counter()
-            engines[g].match(left, right)
-            torch.cuda.synchronize()
-            times[g].append(time.perf_counter() - t0)
-    rows = []
-    for g in gates:
-        ts = sorted(times[g])
-        row = {"gate_pixels": g, "warm_median_s": statistics.median(ts),
-               "q1_s": ts[len(ts) // 4], "q3_s": ts[(3 * len(ts)) // 4],
-               "warm_s": times[g]}
-        rows.append(row)
-        print(f"gate_sweep gate={g} warm_median_s={row['warm_median_s']:.4f}"
-              f" q1={row['q1_s']:.4f} q3={row['q3_s']:.4f}")
-    report["gate_sweep"] = rows
-
-
 def level_table(dev, cfg, left, right, report: dict) -> None:
     """Phase 3b: each level 5-13 of the nearest 16 MP match, from the
     state the next coarser level hands it, timed level-resident against
@@ -650,7 +641,6 @@ def main() -> int:
           f"resident={a['profile']['busy_share']:.3f} "
           f"per_iteration={b['profile']['busy_share']:.3f}")
     torch.cuda.empty_cache()
-    gate_sweep(dev, cfg, left, right, report)
     level_table(dev, cfg, left, right, report)
     lockstep_level(dev, cfg, left, right, report)
 

@@ -151,6 +151,54 @@ def test_match_pyramid_free_running_close():
     assert np.median(d) < 1e-3 and (d > 0.02).mean() < 0.02
 
 
+def jax_level_body_unjitted(left, right, disp, i, cfg, is_coarsest):
+    """The JAX package's own per-iteration level body, run op by op
+    without jit (its CPU path: XLA gather warp, unfused stencils)."""
+    mi = cfg.iters_for_level(i)
+    thr = cfg.threshold_schedule(mi)
+    body = jmatch._make_level_body(
+        left, right, jmatch._level_blurred_l2(left, cfg), cfg, i,
+        is_coarsest, cfg.smooth_passes_for_level(i), False, False)
+    state = tuple(jnp.asarray(p) for p in disp)
+    for m in range(mi):
+        state, _ = body(state, (jnp.int32(m), jnp.float32(thr[m])))
+    return np.stack([np.asarray(p) for p in state])
+
+
+def test_bilinear_levels_bit_exact_against_jax_level_body():
+    """Where the bilinear engines' free-running gap comes from: on the JAX
+    package's pyramid, each level of a 64x96 bilinear match started from
+    the state the jitted JAX engine hands it equals the JAX level body run
+    without jit bit for bit, and the jitted JAX match_level differs from
+    both by XLA's fusion rounding only, within the lockstep rule.  So the
+    port computes the JAX package's per-iteration arithmetic exactly; what
+    is left between the free-running engines is that fusion rounding and
+    the bilinear resample form (host float64 taps against the JAX CPU
+    path's float32 ``tex_gather``), amplified by the iteration."""
+    jcfg, tcfg = configs(interp="bilinear")
+    h, w = 64, 96
+    left, right = synthetic_pair(h, w, shift_x=2)
+    n = tcfg.num_levels(h, w)
+    jl, jr = jpyr.build_pyramid_pair(jnp.asarray(left), jnp.asarray(right),
+                                     jcfg, n)
+    dims = tmatch.level_dims_for_matching(tcfg, h, w, n, False)
+    disp = np.zeros((3,) + dims[n - 1], np.float32)
+    for i in range(n - 1, -1, -1):
+        coarsest = i == n - 1
+        out = tmatch.match_level(torch.from_numpy(np.array(jl[i])),
+                                 torch.from_numpy(np.array(jr[i])),
+                                 torch.from_numpy(disp), i, tcfg,
+                                 coarsest).numpy()
+        np.testing.assert_array_equal(
+            out, jax_level_body_unjitted(jl[i], jr[i], disp, i, jcfg,
+                                         coarsest))
+        ref = jmatch.match_level(jl[i], jr[i], jnp.asarray(disp), i, jcfg,
+                                 coarsest)
+        assert_lockstep_close(out, np.asarray(ref))
+        if i > 0:
+            disp = np.array(jpyr.upsample_to_level(ref, *dims[i - 1], jcfg))
+
+
 def test_engine_bilinear_matches_jax_engine():
     """Bilinear end to end, free-running, against the JAX engine, under
     the quantile rule of the nearest free-running test (the same scene

@@ -67,9 +67,10 @@ class StereoEngine:
 
     An entry point returns once the device has finished its work, so the
     recorded time is completion latency, not enqueue time.
-    ``resident_max_pixels`` is the level-resident gate of
-    match.match_level (None: LEVEL_RESIDENT_MAX_PIXELS; 0: every level
-    runs per iteration).
+    ``resident_max_pixels`` is a measurement-only override of the
+    level-resident gate of match.match_level, for timing both routes of
+    one match (None, the default for every workload: the size-derived
+    LEVEL_RESIDENT_MAX_PIXELS; 0: every level runs per iteration).
     """
 
     def __init__(self, config: Optional[MatcherConfig] = None,

@@ -90,9 +90,10 @@ def level_resident_match(left: torch.Tensor, right: torch.Tensor,
     average).  ``replace_first`` replaces the confidence on the first
     iteration (the coarsest level); ``consts`` is MatcherConfig.conf_consts.
     Returns the refined state.  A CUDA tensor runs the kernel in one
-    cooperative launch (``grid_blocks`` > 0 asks for that many blocks
-    instead of sizing the grid from the level); a CPU tensor runs the
-    plain version."""
+    cooperative launch; a CPU tensor runs the plain version.
+    ``grid_blocks`` > 0 asks for that many blocks instead of sizing the
+    grid from the level: a test-only override, to show that a grid the
+    card cannot hold at once is refused."""
     if method not in INTERP_METHODS:
         raise unsupported_interp(method)
     shape = disp.shape
