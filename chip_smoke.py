@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one CUDA card: mode 1 at 16 MP through
-the hand-written Hopper kernels, nearest and bilinear.
+the hand-written Hopper kernels, nearest and bilinear, whole and
+row-sharded.
 
 Phases (any failure exits non-zero before the last line is printed):
 
@@ -10,27 +11,51 @@ Phases (any failure exits non-zero before the last line is printed):
    with the median time of each beside the other (CUDA events):
    blur, resample (nearest and bilinear), warp (nearest and bilinear),
    direction and smooth at the 16 MP level-0 shape and at pyramid level 8
-   (202 x 306), and the level-resident kernel at levels 8 and 13 in both
-   methods with replace_first on and off; each kernel's least possible
-   time on the card (bound) and, where one PyTorch call computes the same
-   function, that call's time;
+   (202 x 306), the row-sharded forms of warp (both methods), direction
+   and smooth on the middle (timed) and bottom shard of four at those
+   levels (816 and 51 rows), and the level-resident kernel at levels 8
+   and 13 in both methods with replace_first on and off; each kernel's
+   least possible time on the card (bound) and, where one PyTorch call
+   computes the same function, that call's time;
 3. slices: StereoEngine.match on the 1/f octave scene with a known 3 px
    shift at 3264 x 4928, (a) nearest with the level-resident gate, (b)
-   nearest with every level per iteration, (c) bilinear: the value gates
-   of the JAX package's on-chip check on [64:-64, 64:-64], the launch
-   count of every kernel against the count the config implies, first-call
+   nearest with every level per iteration, (c) bilinear; then
+   StereoEngine.match_batch of the same pair on a 1 x 4 mesh of this one
+   card (four row shards), (d) nearest and (e) bilinear, each equal to
+   (a) or (c) bit for bit.  For each: the value gates of the JAX
+   package's on-chip check on [64:-64, 64:-64], the launch count of every
+   kernel against the count the config implies (for the mesh), first-call
    and warm latency, peak device memory, and the kernel time by name over
-   one warm match (torch.profiler) with the device's busy share; then
-   levels 5-13 of the nearest match timed level-resident against per
-   iteration;
+   one warm match (torch.profiler) with the device's busy share; then two
+   816 x 1232 pairs on a 2 x 2 mesh of this card against match per pair,
+   the 1 x N mesh across the cards where there are several, and levels
+   5-13 of the nearest match timed level-resident against per iteration;
 4. lockstep: pyramid level 4 (815 x 1231) refined from one input state
    by the kernels and by the plain versions on the card, held to the
    repo's quantile rule (q99 <= 2e-3, max <= 0.05);
 5. a JSON line of the kernels, the nvidia-smi line, and the last line
    {"ok": true, "device": {...}}.
 
+Four shards on one card do the pixel work of one match plus the halo
+copies and the launches of four: they show that the sharded path is
+right and what it costs, not how it scales.
+
 It imports torch, numpy and the port, never jax.  Usage:
     python3 chip_smoke.py [--out FILE.json]
+
+With ``--ab NAME=PATH`` given twice or more, it runs none of the phases
+above and compares source trees instead (for example a parent commit
+unpacked by ``git archive`` against this checkout): each round runs
+every tree once, in its own process that imports the port from that
+tree and builds its kernels there, in an order reversed every other
+round (parent, change, change, parent, ...).  A process times
+StereoEngine.match nearest on the bench scene, warm (host clock around
+a synchronised call, median of ``--matches`` after one warm-up), and
+the whole-image blur, warp, direction and smooth (n = 10) kernels at
+16 MP with cuda_ms.  It prints a JSON line per process, the nvidia-smi
+line and the medians per tree:
+    python3 chip_smoke.py --ab parent=_smoke_checkout/parent --ab change=. \\
+        [--rounds 2] [--matches 7] [--out FILE.json]
 """
 
 from __future__ import annotations
@@ -41,6 +66,7 @@ import statistics
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -136,13 +162,63 @@ def expected_launches(cfg, h: int, w: int, resident_max_pixels=None) -> dict:
     return {k: v for k, v in counts.items() if v}
 
 
-def grid_sample_warp(img, dh, dv, mode):
+def expected_mesh_launches(cfg, h: int, w: int, devices) -> dict:
+    """Kernel launches of one pair through StereoEngine.match_batch on a
+    mesh whose rows axis is ``devices``, derived from the config: a stage
+    with rows enough to shard (spatial._row_ok) launches once per shard,
+    any other once per distinct device (a sharded level: the row-sharded
+    warp, direction and smooth once per shard and iteration, and one
+    G(L^2) blur per shard; a whole level: as in expected_launches)."""
+    from ug_stereomatcher_tpu_torch.match import uses_level_resident
+    from ug_stereomatcher_tpu_torch.parallel.spatial import (
+        MIN_ROWS_PER_SHARD, _row_ok)
+
+    n = cfg.num_levels(h, w)
+    dims = cfg.dims_chain(h, w)[:n]
+    shards, copies = len(devices), len(set(devices))
+    form = "" if cfg.interp == "nearest" else f"_{cfg.interp}"
+    counts: dict = {}
+
+    def add(name, k):
+        counts[name] = counts.get(name, 0) + k
+
+    def per(rows):
+        return shards if _row_ok(rows, shards, MIN_ROWS_PER_SHARD) else copies
+
+    for i in range(n):
+        targets = ([1] if i == 0 and n > 1 else []) + (
+            [i + 2] if i + 2 < n else [])
+        if targets:
+            add("blur", per(dims[i][0]))
+        for j in targets:
+            add(f"resample{form}", per(dims[j][0]))
+        it = cfg.iters_for_level(i)
+        if _row_ok(dims[i][0], shards, MIN_ROWS_PER_SHARD):
+            for name in (f"warp{form}_row_halo", "direction_row_halo",
+                         "smooth_row_halo"):
+                add(name, it * shards)
+            add("blur", shards)
+        elif uses_level_resident(*dims[i]):
+            add("level", copies)
+        else:
+            for name in (f"warp{form}", "direction", "smooth"):
+                add(name, it * copies)
+            add("blur", copies)
+        if i > 0:
+            add(f"resample{form}", per(dims[i - 1][0])
+                * (1 if cfg.scale_conf_on_upsample else 2))
+    return counts
+
+
+def grid_sample_warp(img, dh, dv, mode, row0: int = 0):
     """F.grid_sample of the same backward warp (texel centres at x + 0.5,
-    clamp addressing as padding_mode="border"), one PyTorch call."""
+    clamp addressing as padding_mode="border"), one PyTorch call; dh and
+    dv are the destination rows from ``row0`` on."""
     import torch.nn.functional as F
 
     _, h, w = img.shape
-    ys = torch.arange(h, device=img.device, dtype=torch.float32)[:, None]
+    ys = torch.arange(row0, row0 + dh.shape[0], device=img.device,
+                      dtype=torch.float32)[:, None]
     xs = torch.arange(w, device=img.device, dtype=torch.float32)[None, :]
     grid = torch.stack([(2.0 * (xs + dh) + 1.0) / w - 1.0,
                         (2.0 * (ys + dv) + 1.0) / h - 1.0], dim=-1)[None]
@@ -320,8 +396,57 @@ def check_kernels(dev, cfg, report: dict) -> None:
                 smooth.fused_smooth_average_plain, (state, smooth_n),
                 work=(6 * hw * 4.0,
                       (SMOOTH_PASS_OPS * smooth_n + AVERAGE_OPS) * hw))
+        check_row_halo(report, tag, left, warped, bl2, state, dh, dv,
+                       smooth_n, cfg.conf_consts)
         del left, warped, bl2, state, stacked, up_src, dh, dv, sq
         torch.cuda.empty_cache()
+
+
+def band(x, lo: int, hi: int):
+    """Rows [lo, hi) of x (..., H, W), clamped to the image: the haloed
+    shard a row-sharded form takes."""
+    idx = torch.arange(lo, hi, device=x.device).clamp(0, x.shape[-2] - 1)
+    return x.index_select(-2, idx).contiguous()
+
+
+def check_row_halo(report: dict, tag: str, left, warped, bl2, state, dh, dv,
+                   smooth_n: int, consts) -> None:
+    """Phase 2a, row-sharded forms: warp, direction and smooth on the
+    middle shard of four (timed; 816 rows at 16 MP) and the bottom shard
+    (checked only), each against its plain version."""
+    from ug_stereomatcher_tpu_torch.ops.cuda import direction, smooth, warp
+    from ug_stereomatcher_tpu_torch.parallel import row_splits
+
+    h, w = left.shape[-2:]
+    splits = row_splits(h, 4)
+    for shard, timed in ((1, True), (3, False)):
+        a, b = splits[shard]
+        hl, px = b - a, (b - a) * w
+        sub = f"{tag}-shard{shard}"
+        dh_s, dv_s = dh[a:b].contiguous(), dv[a:b].contiguous()
+        for method, name in (("nearest", "warp_row_halo"),
+                             ("bilinear", "warp_bilinear_row_halo")):
+            compare(report, name, sub, warp.warp, warp.warp_plain,
+                    (left, dh_s, dv_s, method, a),
+                    work=(8 * px * 4.0, WARP_OPS[method] * px),
+                    library=grid_sample_warp(left, dh_s, dv_s, method, a),
+                    timed=timed)
+        d = direction.HALO
+        compare(report, "direction_row_halo", sub,
+                direction.fused_direction_update,
+                direction.fused_direction_update_plain,
+                (band(left, a - d, b + d), band(warped, a - d, b + d),
+                 bl2[:, a:b].contiguous(), state[:, a:b].contiguous(), 1.0,
+                 False, consts, a, h),
+                work=((6 * (hl + 2 * d) + 9 * hl) * w * 4.0,
+                      DIRECTION_OPS * px), timed=timed)
+        s = smooth.smooth_halo_rows(smooth_n)
+        compare(report, "smooth_row_halo", sub, smooth.fused_smooth_average,
+                smooth.fused_smooth_average_plain,
+                (band(state, a - s, b + s), smooth_n, a, h),
+                work=((3 * (hl + 2 * s) + 3 * hl) * w * 4.0,
+                      (SMOOTH_PASS_OPS * smooth_n + AVERAGE_OPS) * px),
+                timed=timed)
 
 
 def level_inputs(dev, h: int, w: int):
@@ -394,34 +519,44 @@ def graph_replay(fn):
 
 
 def run_slice(dev, cfg, left, right, label: str, gate: float,
-              resident_max_pixels=None) -> dict:
+              resident_max_pixels=None, mesh=None):
     """Phase 3: one 16 MP match configuration through the kernels: value
     gates (med|dh-3| < gate, mean|dv| < gate, frac(|dh-3| < 1) > 0.9),
-    launch counts, latency, peak memory and the profile."""
+    launch counts, latency, peak memory and the profile.  With a mesh the
+    pair goes through StereoEngine.match_batch on it.  Returns the
+    summary and the level-0 triplet."""
     from ug_stereomatcher_tpu_torch import StereoEngine, scene
     from ug_stereomatcher_tpu_torch.ops.cuda import _build
 
     eng = StereoEngine(cfg, device=dev,
                        resident_max_pixels=resident_max_pixels)
+    if mesh is None:
+        def call():
+            return eng.match(left, right).triplet
+        want = expected_launches(cfg, H, W, resident_max_pixels)
+    else:
+        def call():
+            return eng.match_batch(left[None], right[None],
+                                   mesh=mesh).triplet[:, 0]
+        want = expected_mesh_launches(cfg, H, W, mesh.row_devices(0))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
 
     _build.reset_launch_counts()
     t0 = time.perf_counter()
-    res = eng.match(left, right)
+    trip = call()
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
     counts = _build.launch_counts()
     peak = torch.cuda.max_memory_allocated(dev)
 
-    want = expected_launches(cfg, H, W, resident_max_pixels)
     print(f"{label} launches {json.dumps(counts, sort_keys=True)} expected "
           f"{json.dumps(want, sort_keys=True)}")
     if counts != want:
         fail(f"{label}: launch counts {counts} differ from the config's "
              f"{want}")
 
-    dh, dv, conf = res.disparity_h, res.disparity_v, res.confidence
+    dh, dv, conf = trip
     for name, plane in (("disparity_h", dh), ("disparity_v", dv),
                         ("confidence", conf)):
         if tuple(plane.shape) != (H, W):
@@ -437,12 +572,12 @@ def run_slice(dev, cfg, left, right, label: str, gate: float,
     if not (med < gate and mean_dv < gate and frac > 0.9):
         fail(f"{label}: 16 MP value gates (med|dh-3| < {gate}, mean|dv| < "
              f"{gate}, frac(|dh-3| < 1) > 0.9)")
-    del res, dh, dv, conf, errh
+    del dh, dv, conf, errh
 
     warm = []
     for _ in range(5):
         t0 = time.perf_counter()
-        eng.match(left, right)
+        call()
         torch.cuda.synchronize()
         warm.append(time.perf_counter() - t0)
     median = statistics.median(warm)
@@ -452,18 +587,18 @@ def run_slice(dev, cfg, left, right, label: str, gate: float,
             "peak_mem_bytes": peak, "med_abs_dh_err": med,
             "frac_dh_err_lt_1": frac, "mean_abs_dv": mean_dv,
             "launches": counts,
-            "profile": profile_match(eng, left, right, median, label)}
+            "profile": profile_match(call, median, label)}, trip
 
 
-def profile_match(eng, left, right, warm_s: float, label: str) -> dict:
-    """Kernel time by name over one warm match (torch.profiler), and the
-    device's busy share of the unprofiled warm latency ``warm_s``."""
+def profile_match(call, warm_s: float, label: str) -> dict:
+    """Kernel time by name over one warm ``call()`` (torch.profiler), and
+    the device's busy share of the unprofiled warm latency ``warm_s``."""
     from torch.profiler import ProfilerActivity, profile as torch_profile
 
     torch.cuda.synchronize()
     with torch_profile(activities=[ProfilerActivity.CPU,
                                    ProfilerActivity.CUDA]) as prof:
-        eng.match(left, right)
+        call()
         torch.cuda.synchronize()
     rows = []
     for ev in prof.key_averages():
@@ -485,6 +620,67 @@ def profile_match(eng, left, right, warm_s: float, label: str) -> dict:
               f"{r['name']}")
     return {"device_busy_ms": busy_ms, "warm_latency_s": warm_s,
             "busy_share": busy_ms / (warm_s * 1e3), "kernels": rows}
+
+
+def check_same(label: str, out, ref) -> None:
+    """The sharded result must equal the unsharded one bit for bit."""
+    same = torch.equal(out, ref)
+    err = (out - ref).abs().max().item()
+    print(f"{label} equals the unsharded slice: {same} (max |d| {err})")
+    if not same:
+        fail(f"{label}: differs from the unsharded slice (max |d| {err})")
+
+
+def pair_batch(dev, cfg, report: dict) -> None:
+    """Phase 3c: two pairs (816 x 1232, seeds 0 and 1) through
+    StereoEngine.match_batch on a (2 pairs x 2 rows) mesh of this card,
+    each equal to StereoEngine.match of its pair bit for bit."""
+    from ug_stereomatcher_tpu_torch import StereoEngine, scene
+    from ug_stereomatcher_tpu_torch.parallel import make_mesh
+
+    h, w = 816, 1232
+    pairs = [scene.make_pair(h, w, seed=s) for s in (0, 1)]
+    left = torch.from_numpy(np.stack([p[0] for p in pairs])).to(dev)
+    right = torch.from_numpy(np.stack([p[1] for p in pairs])).to(dev)
+    eng = StereoEngine(cfg, device=dev)
+    mesh = make_mesh(2, 2, devices=[dev] * 4)
+    res = eng.match_batch(left, right, mesh=mesh)
+    torch.cuda.synchronize()
+    same = []
+    for i in range(2):
+        ref = eng.match(left[i], right[i]).triplet
+        same.append(torch.equal(res.triplet[:, i], ref))
+    t0 = time.perf_counter()
+    eng.match_batch(left, right, mesh=mesh)
+    torch.cuda.synchronize()
+    batch_s = time.perf_counter() - t0
+    print(f"pair_batch 2x{h}x{w} on a 2x2 mesh of one card: equal to match "
+          f"per pair {same}, warm {batch_s:.4f} s")
+    if not all(same):
+        fail("pair_batch: match_batch on the 2x2 mesh differs from match")
+    report["pair_batch"] = {"shape": [h, w], "equal": same,
+                            "warm_s": batch_s}
+
+
+def across_cards(dev, cfg, left, right, ref, report: dict) -> None:
+    """With more than one card: the 1 x N mesh over the cards, checked
+    against the unsharded slice and timed warm."""
+    from ug_stereomatcher_tpu_torch import StereoEngine
+    from ug_stereomatcher_tpu_torch.parallel import make_mesh
+
+    n = torch.cuda.device_count()
+    mesh = make_mesh(1, n)
+    eng = StereoEngine(cfg, device=dev)
+    out = eng.match_batch(left[None], right[None], mesh=mesh).triplet[:, 0]
+    check_same(f"across_cards 1x{n}", out, ref)
+    warm = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        eng.match_batch(left[None], right[None], mesh=mesh)
+        warm.append(time.perf_counter() - t0)
+    print(f"across_cards 1x{n} warm_median_s={statistics.median(warm):.4f} "
+          f"warm_s={[round(x, 4) for x in warm]}")
+    report["across_cards"] = {"cards": n, "warm_s": warm}
 
 
 def level_table(dev, cfg, left, right, report: dict) -> None:
@@ -587,21 +783,127 @@ KERNELS = {
     "direction": ("direction.cu", "ops/pallas/direction.py:258", "nearest"),
     "smooth": ("smooth.cu", "ops/pallas/smooth.py:205", "nearest"),
     "level": ("level.cu", "ops/pallas/level.py:351", "nearest"),
+    "warp_row_halo": ("warp.cu", "ops/pallas/warp.py:394", "sharded_nearest"),
+    "warp_bilinear_row_halo": ("warp.cu", "ops/pallas/warp.py:394",
+                               "sharded_bilinear"),
+    "direction_row_halo": ("direction.cu", "ops/pallas/direction.py:258",
+                           "sharded_nearest"),
+    "smooth_row_halo": ("smooth.cu", "ops/pallas/smooth.py:205",
+                        "sharded_nearest"),
 }
+
+
+AB_TIMES = ("match_warm_median_s", "blur_ms", "warp_ms", "direction_ms",
+            "smooth_ms")
+
+
+def ab_child(tree: str, matches: int) -> dict:
+    """One --ab process: the port imported from ``tree``, timed."""
+    sys.path.insert(0, str(Path(tree).resolve()))
+    import ug_stereomatcher_tpu_torch as port
+    from ug_stereomatcher_tpu_torch import MatcherConfig, StereoEngine, scene
+    from ug_stereomatcher_tpu_torch.ops.cuda import (
+        blur, direction, smooth, warp)
+
+    where = Path(port.__file__).resolve()
+    if Path(tree).resolve() not in where.parents:
+        fail(f"imported {where}, not the port of {tree}")
+    dev = torch.device("cuda")
+    left_np, right_np = scene.make_pair(H, W, seed=SEED)
+    left = torch.from_numpy(left_np).to(dev)
+    right = torch.from_numpy(right_np).to(dev)
+    eng = StereoEngine(MatcherConfig(), device=dev)
+    eng.match(left, right)
+    torch.cuda.synchronize()
+    warm = []
+    for _ in range(matches):
+        t0 = time.perf_counter()
+        eng.match(left, right)
+        torch.cuda.synchronize()
+        warm.append(time.perf_counter() - t0)
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+
+    def rand(*shape, lo=0.0, hi=1.0):
+        return lo + (hi - lo) * torch.rand(*shape, generator=gen, device=dev)
+
+    img = rand(3, H, W, hi=255.0)
+    other = torch.clamp(img + rand(3, H, W, lo=-20.0, hi=20.0), 0, 255)
+    bl2 = rand(3, H, W, hi=1e4)
+    state = torch.stack([rand(H, W, lo=-2.0, hi=5.0),
+                         rand(H, W, lo=-1.0, hi=1.0),
+                         rand(H, W, lo=0.05, hi=1.0)])
+    dh, dv = rand(H, W, lo=-24.0, hi=30.0), rand(H, W, lo=-12.0, hi=12.0)
+    return {
+        "tree": tree, "match_warm_s": warm,
+        "match_warm_median_s": statistics.median(warm),
+        "blur_ms": cuda_ms(lambda: blur.fused_blur_gaussian(img, "clamp")),
+        "warp_ms": cuda_ms(lambda: warp.warp(img, dh, dv)),
+        "direction_ms": cuda_ms(lambda: direction.fused_direction_update(
+            img, other, bl2, state, 1.0, False)),
+        "smooth_ms": cuda_ms(lambda: smooth.fused_smooth_average(state, 10)),
+    }
+
+
+def ab(trees, rounds: int, matches: int, out) -> int:
+    """--ab: the trees timed in turns, one process per tree and round."""
+    smi = nvidia_smi()
+    runs = []
+    for r in range(rounds):
+        for name, tree in (trees if r % 2 == 0 else trees[::-1]):
+            proc = subprocess.run(
+                [sys.executable, str(Path(__file__).resolve()), "--ab-child",
+                 tree, "--matches", str(matches)],
+                capture_output=True, text=True, timeout=900)
+            if proc.returncode != 0:
+                print(proc.stdout + proc.stderr, file=sys.stderr)
+                fail(f"--ab: the process of {name} exited {proc.returncode}")
+            run = json.loads(proc.stdout.strip().splitlines()[-1])
+            run.update(name=name, round=r)
+            runs.append(run)
+            print(json.dumps(run))
+    print(f"nvidia-smi {smi}")
+    summary = {}
+    for name, _ in trees:
+        mine = [x for x in runs if x["name"] == name]
+        summary[name] = {k: statistics.median(x[k] for x in mine)
+                         for k in AB_TIMES}
+        print(f"{name}: " + " ".join(f"{k}={v:.4f}"
+                                     for k, v in summary[name].items()))
+    if out:
+        with open(out, "w") as fh:
+            json.dump({"nvidia_smi": smi, "runs": runs, "summary": summary},
+                      fh, indent=1)
+    return 0
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="write the full report here as JSON")
+    ap.add_argument("--ab", action="append", default=[],
+                    metavar="NAME=PATH",
+                    help="compare source trees instead (give two or more)")
+    ap.add_argument("--rounds", type=int, default=2)
+    ap.add_argument("--matches", type=int, default=7)
+    ap.add_argument("--ab-child", help=argparse.SUPPRESS)
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
         print("chip_smoke: torch finds no CUDA device; nothing to run",
               file=sys.stderr)
         return 2
+    if args.ab_child:
+        print(json.dumps(ab_child(args.ab_child, args.matches)))
+        return 0
+    if args.ab:
+        trees = [t.split("=", 1) for t in args.ab]
+        if len(trees) < 2 or any(len(t) != 2 for t in trees):
+            ap.error("give at least two --ab NAME=PATH")
+        return ab(trees, args.rounds, args.matches, args.out)
     from ug_stereomatcher_tpu_torch import MatcherConfig, scene
     from ug_stereomatcher_tpu_torch.device import resolve_device
     from ug_stereomatcher_tpu_torch.ops.cuda import _build
+    from ug_stereomatcher_tpu_torch.parallel import make_mesh
 
     dev = resolve_device("cuda")
     cfg = MatcherConfig()
@@ -629,17 +931,35 @@ def main() -> int:
     left = torch.from_numpy(left_np).to(dev)
     right = torch.from_numpy(right_np).to(dev)
     slices = report["slices"] = {}
-    slices["nearest"] = run_slice(dev, cfg, left, right, "nearest", 0.5)
-    slices["nearest_per_iteration"] = run_slice(
+    bil = MatcherConfig(interp="bilinear")
+    slices["nearest"], near_ref = run_slice(dev, cfg, left, right, "nearest",
+                                            0.5)
+    slices["nearest_per_iteration"], _ = run_slice(
         dev, cfg, left, right, "nearest_per_iteration", 0.5,
         resident_max_pixels=0)
-    slices["bilinear"] = run_slice(dev, MatcherConfig(interp="bilinear"),
-                                   left, right, "bilinear", 0.1)
+    slices["bilinear"], bil_ref = run_slice(dev, bil, left, right,
+                                            "bilinear", 0.1)
     a, b = slices["nearest"], slices["nearest_per_iteration"]
     print(f"gate warm_median_s resident={a['warm_median_s']:.4f} "
           f"per_iteration={b['warm_median_s']:.4f} busy_share "
           f"resident={a['profile']['busy_share']:.3f} "
           f"per_iteration={b['profile']['busy_share']:.3f}")
+    torch.cuda.empty_cache()
+
+    # The row-sharded slices: four shards of the pair on this one card.
+    mesh = make_mesh(1, 4, devices=[dev] * 4)
+    for label, c, gate, ref in (("sharded_nearest", cfg, 0.5, near_ref),
+                                ("sharded_bilinear", bil, 0.1, bil_ref)):
+        slices[label], trip = run_slice(dev, c, left, right, label, gate,
+                                        mesh=mesh)
+        check_same(label, trip, ref)
+        del trip
+    del bil_ref
+    torch.cuda.empty_cache()
+    pair_batch(dev, cfg, report)
+    if torch.cuda.device_count() > 1:
+        across_cards(dev, cfg, left, right, near_ref, report)
+    del near_ref
     torch.cuda.empty_cache()
     level_table(dev, cfg, left, right, report)
     lockstep_level(dev, cfg, left, right, report)
@@ -657,7 +977,8 @@ def main() -> int:
             fail(f"{name}: not launched on the {path} main path")
         k = kernels[name]
         # the first timed case: 16 MP (the stacked 6-plane zero blur and
-        # subsample, replace=False, n_smooth=10); level 8 for the level
+        # subsample, replace=False, n_smooth=10; the row-sharded forms on
+        # the middle shard of four, 816 rows); level 8 for the level
         # kernel (nearest, replace_first off)
         case = next(c for c in k["cases"] if "ms" in c)
         rows.append({"name": name, "route": "cuda",

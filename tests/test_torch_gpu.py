@@ -9,7 +9,10 @@ card it runs without the JAX test configuration:
 warp, resample and blur must be bit-exact in both interpolation modes;
 so must direction, smooth and the level-resident kernel, since the
 kernels are built with --fmad=false and keep the plain versions' term
-order.
+order.  The row-sharded forms of warp, direction and smooth must equal
+their plain versions and the unsharded kernels' rows, on the top, middle
+and bottom shards, and the sharded level and batch on a mesh of one
+card repeated must equal the unsharded engine.
 """
 
 import numpy as np
@@ -17,6 +20,8 @@ import pytest
 import torch
 
 from ug_stereomatcher_tpu_torch import MatcherConfig, StereoEngine
+from ug_stereomatcher_tpu_torch import match as match_mod
+from ug_stereomatcher_tpu_torch import parallel as par
 from ug_stereomatcher_tpu_torch import scene
 from ug_stereomatcher_tpu_torch.ops.cuda import (
     _build, blur, direction, level, resample, smooth, warp)
@@ -183,3 +188,102 @@ def test_engine_on_card_matches_plain_engine(cuda, interp):
     d = (gpu.triplet.cpu() - cpu.triplet).abs().numpy()
     assert np.median(d) < 1e-3 and (d > 0.02).mean() < 0.02
     assert abs(np.median(gpu.disparity_h.cpu().numpy()[12:-12, 12:-12]) - 2) < 0.5
+
+
+# ------------------------------------------------ row-sharded forms
+ROWS, COLS = 61, 300                     # 4 shards: 16, 16, 16, 13 rows
+SHARDS = {"top": 0, "middle": 1, "bottom": 3}
+
+
+def band(x, lo, hi):
+    """Rows [lo, hi) of x (..., H, W) clamped to the image."""
+    idx = torch.arange(lo, hi, device=x.device).clamp(0, x.shape[-2] - 1)
+    return x.index_select(-2, idx).contiguous()
+
+
+@pytest.mark.parametrize("shard", sorted(SHARDS))
+@pytest.mark.parametrize("method", ["nearest", "bilinear"])
+def test_warp_row_halo_bit_exact(cuda, method, shard):
+    a, b = par.row_splits(ROWS, 4)[SHARDS[shard]]
+    img = rand(cuda, 3, ROWS, COLS)
+    dh = rand(cuda, ROWS, COLS, lo=-60.0, hi=60.0, seed=1)
+    dv = rand(cuda, ROWS, COLS, lo=-20.0, hi=20.0, seed=2)
+    args = (img, dh[a:b].contiguous(), dv[a:b].contiguous(), method, a)
+    assert_same(warp.warp, warp.warp_plain, *args)
+    assert torch.equal(warp.warp(*args), warp.warp(img, dh, dv, method)[:, a:b])
+
+
+@pytest.mark.parametrize("shard", sorted(SHARDS))
+def test_direction_row_halo_bit_exact(cuda, shard):
+    a, b = par.row_splits(ROWS, 4)[SHARDS[shard]]
+    h = direction.HALO
+    left = rand(cuda, 3, ROWS, COLS, hi=255.0, seed=3)
+    warped = rand(cuda, 3, ROWS, COLS, hi=255.0, seed=4)
+    bl2 = blur.fused_blur_gaussian_plain(left * left, "clamp")
+    disp = rand(cuda, 3, ROWS, COLS, lo=-0.5, hi=0.5, seed=5)
+    args = (band(left, a - h, b + h), band(warped, a - h, b + h),
+            bl2[:, a:b].contiguous(), disp[:, a:b].contiguous(), 0.55,
+            shard == "top", CONSTS, a, ROWS)
+    assert_same(direction.fused_direction_update,
+                direction.fused_direction_update_plain, *args)
+    whole = direction.fused_direction_update(left, warped, bl2, disp, 0.55,
+                                             shard == "top", CONSTS)
+    assert torch.equal(direction.fused_direction_update(*args), whole[:, a:b])
+
+
+@pytest.mark.parametrize("shard", sorted(SHARDS))
+@pytest.mark.parametrize("n", [0, 5, 10])
+def test_smooth_row_halo_bit_exact(cuda, n, shard):
+    a, b = par.row_splits(ROWS, 4)[SHARDS[shard]]
+    h = smooth.smooth_halo_rows(n)
+    st = rand(cuda, 3, ROWS, COLS, lo=0.05, hi=1.05, seed=6)
+    args = (band(st, a - h, b + h), n, a, ROWS)
+    assert_same(smooth.fused_smooth_average,
+                smooth.fused_smooth_average_plain, *args)
+    whole = smooth.fused_smooth_average(st, n)
+    assert torch.equal(smooth.fused_smooth_average(*args), whole[:, a:b])
+
+
+def test_row_halo_wrappers_count_under_their_own_names(cuda):
+    _build.reset_launch_counts()
+    x = rand(cuda, 3, 20, 40, lo=0.1, hi=1.0)
+    warp.warp(x, x[0, 4:9].contiguous(), x[1, 4:9].contiguous(), row0=4)
+    warp.warp(x, x[0, :5].contiguous(), x[1, :5].contiguous(), "bilinear", 0)
+    direction.fused_direction_update(x, x, x[:, 3:17].contiguous(),
+                                     x[:, 3:17].contiguous(), 1.0, False,
+                                     row0=3, global_h=20)
+    smooth.fused_smooth_average(x, 2, row0=3, global_h=20)
+    torch.cuda.synchronize()
+    assert _build.launch_counts() == {
+        "warp_row_halo": 1, "warp_bilinear_row_halo": 1,
+        "direction_row_halo": 1, "smooth_row_halo": 1}
+
+
+@pytest.mark.parametrize("interp", ["nearest", "bilinear"])
+@pytest.mark.parametrize("h,w,level_index,replace",
+                         [(130, 200, 1, False), (301, 250, 6, True)])
+def test_sharded_level_on_card_equals_match_level(cuda, interp, h, w,
+                                                  level_index, replace):
+    """Four shards on one card against the unsharded level (130 x 200 runs
+    level-resident unsharded, 301 x 250 per iteration)."""
+    cfg = MatcherConfig(interp=interp)
+    left, right, state = _level_inputs(cuda, h, w)
+    mesh = par.make_mesh(1, 4, devices=[cuda] * 4)
+    ref = match_mod.match_level(left, right, state, level_index, cfg, replace)
+    out = par.sharded_match_level(left, right, state, level_index, cfg,
+                                  replace, mesh)
+    assert torch.equal(out.gather(cuda), ref)
+
+
+def test_match_batch_on_card_mesh_equals_match(cuda):
+    pairs = [scene.make_pair(96, 136, seed=s) for s in (0, 1)]
+    left = np.stack([p[0] for p in pairs])
+    right = np.stack([p[1] for p in pairs])
+    eng = StereoEngine(device="cuda")
+    mesh = par.make_mesh(2, 2, devices=[cuda] * 4)
+    res = eng.match_batch(left, right, mesh=mesh)
+    for i in range(2):
+        single = eng.match(left[i], right[i])
+        assert torch.equal(res.disparity_h[i], single.disparity_h)
+        assert torch.equal(res.disparity_v[i], single.disparity_v)
+        assert torch.equal(res.confidence[i], single.confidence)

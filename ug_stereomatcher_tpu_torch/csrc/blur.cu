@@ -20,25 +20,37 @@ constexpr int kBX = 32;  // tile width = threads in x
 constexpr int kBY = 8;   // threads in y
 constexpr int kTH = 32;  // tile height (4 rows per thread)
 
-template <bool CLAMP, bool SQUARE>
+// BAND (clamp boundary only): x holds x_rows rows of the H-row image
+// from global row x_row0, and the kernel writes out_rows rows from global
+// row out_row0 into planes of out_plane_rows rows.  Rows clamp at the
+// image's global edges, so the band's rows equal the whole image's; a
+// staged row past the band (read only by a tile row past out_rows) is
+// clamped to the band.
+template <bool CLAMP, bool SQUARE, bool BAND>
 __global__ void __launch_bounds__(kBX * kBY)
     sep5_kernel(const float* __restrict__ x, float* __restrict__ out, int H,
-                int W, Taps5 taps) {
+                int W, Taps5 taps, int x_row0, int x_rows, int out_row0,
+                int out_rows, int out_plane_rows) {
   __shared__ float xs[kTH + 4][kBX + 4];
   __shared__ float rs[kTH + 4][kBX];
   const int tx = threadIdx.x, ty = threadIdx.y;
   const int c0 = blockIdx.x * kBX, r0 = blockIdx.y * kTH;
-  const size_t plane = (size_t)H * W;
-  const float* __restrict__ xp = x + (size_t)blockIdx.z * plane;
-  float* __restrict__ op = out + (size_t)blockIdx.z * plane;
+  const int rows = BAND ? out_rows : H;
+  const int grow0 = BAND ? out_row0 + r0 : r0;  // global row of the tile
+  const size_t xplane = (size_t)(BAND ? x_rows : H) * W;
+  const size_t oplane = (size_t)(BAND ? out_plane_rows : H) * W;
+  const float* __restrict__ xp = x + (size_t)blockIdx.z * xplane;
+  float* __restrict__ op = out + (size_t)blockIdx.z * oplane;
 
   for (int i = ty; i < kTH + 4; i += kBY) {
-    const int gr = r0 - 2 + i;
+    const int gr = grow0 - 2 + i;
     for (int j = tx; j < kBX + 4; j += kBX) {
       const int gc = c0 - 2 + j;
       float v;
       if (CLAMP) {
-        v = xp[(size_t)clampi(gr, 0, H - 1) * W + clampi(gc, 0, W - 1)];
+        int lr = clampi(gr, 0, H - 1);
+        if (BAND) lr = clampi(lr - x_row0, 0, x_rows - 1);
+        v = xp[(size_t)lr * W + clampi(gc, 0, W - 1)];
       } else {
         const bool inside = gr >= 0 && gr < H && gc >= 0 && gc < W;
         v = inside ? xp[(size_t)gr * W + gc] : 0.0f;
@@ -61,11 +73,11 @@ __global__ void __launch_bounds__(kBX * kBY)
   const int gc = c0 + tx;
   if (gc >= W) return;
   for (int i = ty; i < kTH; i += kBY) {
-    const int gr = r0 + i;
-    if (gr >= H) break;
-    op[(size_t)gr * W + gc] = pass5(taps, rs[i][tx], rs[i + 1][tx],
-                                    rs[i + 2][tx], rs[i + 3][tx],
-                                    rs[i + 4][tx]);
+    const int r = r0 + i;
+    if (r >= rows) break;
+    op[(size_t)r * W + gc] = pass5(taps, rs[i][tx], rs[i + 1][tx],
+                                   rs[i + 2][tx], rs[i + 3][tx],
+                                   rs[i + 4][tx]);
   }
 }
 
@@ -77,17 +89,37 @@ void launch_sep5(const float* x, float* out, int C, int H, int W, int clamp,
   const dim3 grid((W + kBX - 1) / kBX, (H + kTH - 1) / kTH, C);
   if (clamp) {
     if (square) {
-      sep5_kernel<true, true><<<grid, block, 0, stream>>>(x, out, H, W, taps);
+      sep5_kernel<true, true, false>
+          <<<grid, block, 0, stream>>>(x, out, H, W, taps, 0, H, 0, H, H);
     } else {
-      sep5_kernel<true, false><<<grid, block, 0, stream>>>(x, out, H, W, taps);
+      sep5_kernel<true, false, false>
+          <<<grid, block, 0, stream>>>(x, out, H, W, taps, 0, H, 0, H, H);
     }
   } else {
     if (square) {
-      sep5_kernel<false, true><<<grid, block, 0, stream>>>(x, out, H, W, taps);
+      sep5_kernel<false, true, false>
+          <<<grid, block, 0, stream>>>(x, out, H, W, taps, 0, H, 0, H, H);
     } else {
-      sep5_kernel<false, false><<<grid, block, 0, stream>>>(x, out, H, W,
-                                                           taps);
+      sep5_kernel<false, false, false>
+          <<<grid, block, 0, stream>>>(x, out, H, W, taps, 0, H, 0, H, H);
     }
+  }
+}
+
+void launch_sep5_band(const float* x, float* out, int C, int H, int W,
+                      int x_row0, int x_rows, int out_row0, int out_rows,
+                      int out_plane_rows, int square, Taps5 taps,
+                      cudaStream_t stream) {
+  const dim3 block(kBX, kBY);
+  const dim3 grid((W + kBX - 1) / kBX, (out_rows + kTH - 1) / kTH, C);
+  if (square) {
+    sep5_kernel<true, true, true><<<grid, block, 0, stream>>>(
+        x, out, H, W, taps, x_row0, x_rows, out_row0, out_rows,
+        out_plane_rows);
+  } else {
+    sep5_kernel<true, false, true><<<grid, block, 0, stream>>>(
+        x, out, H, W, taps, x_row0, x_rows, out_row0, out_rows,
+        out_plane_rows);
   }
 }
 

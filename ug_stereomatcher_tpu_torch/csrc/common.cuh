@@ -56,4 +56,15 @@ __device__ __forceinline__ float pass5(const Taps5& tp, float xm2, float xm1,
 void launch_sep5(const float* x, float* out, int C, int H, int W, int clamp,
                  int square, Taps5 taps, cudaStream_t stream);
 
+// The clamp-boundary form for a band of the H-row image (a row shard):
+// x holds x_rows rows from global row x_row0; out_rows rows from global
+// row out_row0 are written to `out`, whose planes hold out_plane_rows
+// rows.  Rows clamp at the image's global edges, so each written row
+// equals the whole image's; x must hold every clamped row within 2 of
+// them.  Defined in blur.cu.
+void launch_sep5_band(const float* x, float* out, int C, int H, int W,
+                      int x_row0, int x_rows, int out_row0, int out_rows,
+                      int out_plane_rows, int square, Taps5 taps,
+                      cudaStream_t stream);
+
 }  // namespace ugsm

@@ -96,6 +96,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   const unsigned int nblocks = gridDim.x;
   const int ntx = (W + kDirBX - 1) / kDirBX;
   const int ntiles = ntx * ((H + kDirBY - 1) / kDirBY);
+  const ugsm::RowBlock whole = ugsm::whole_image(H);
 
   // The input state, and G(L^2), which holds for the whole level.
   for (int p = first; p < HW; p += stride) {
@@ -111,7 +112,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   for (int m = 0; m < a.mi; ++m) {
     for (int p = first; p < HW; p += stride) {
       const int r = p / W, x = p - r * W;
-      ugsm::warp_px<BILINEAR>(a.right, a.warped, 3, H, W, r, x,
+      ugsm::warp_px<BILINEAR>(a.right, a.warped, 3, H, W, plane, p, r, x,
                               LdL2::ld(a.state + p),
                               LdL2::ld(a.state + plane + p));
     }
@@ -131,7 +132,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     for (int t = blockIdx.x; t < ntiles; t += gridDim.x) {
       const int tr = t / ntx;
       ugsm::direction_tile<LdL2>(a.left, a.warped, a.bl2, a.bw2, a.state,
-                                 a.upd, H, W, tr * kDirBY,
+                                 a.upd, whole, W, tr * kDirBY,
                                  (t - tr * ntx) * kDirBX, a.thr[m], replace,
                                  a.gauss, a.k);
     }
@@ -142,7 +143,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       float* dst = (i & 1) ? a.pong : a.ping;
       for (int p = first; p < HW; p += stride) {
         const int r = p / W;
-        ugsm::smooth_px<LdL2>(src, dst, H, W, r, p - r * W);
+        ugsm::smooth_px<LdL2>(src, dst, whole, W, r, p - r * W);
       }
       grid_sync(a.bar, nblocks);
       src = dst;

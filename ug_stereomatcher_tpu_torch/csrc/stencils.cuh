@@ -9,11 +9,33 @@
 // in L2 only) for the level-resident kernel, which reads planes that other
 // blocks wrote before the last grid barrier; the non-coherent L1 must not
 // serve those.
+//
+// Row-sharded (row-halo) forms: a shard's planes hold a band of the
+// image's rows, and every boundary (the zero and clamp edges, the kept
+// row 0) resolves at the image's global rows 0 and H - 1, never at the
+// band's edges.  RowBlock says where the bands lie; whole_image(H) is the
+// unsharded case, for which every index below reduces to the plain one.
 #pragma once
 
 #include "common.cuh"
 
 namespace ugsm {
+
+// The output planes hold `out_rows` rows from global row `row0`; the
+// haloed input planes hold `in_rows` rows from global row `in_row0`
+// (row0 - halo); H is the image's height.
+struct RowBlock {
+  int H, row0, out_rows, in_row0, in_rows;
+};
+
+__host__ __device__ inline RowBlock whole_image(int H) {
+  return RowBlock{H, 0, H, 0, H};
+}
+
+__host__ __device__ inline RowBlock row_block(int H, int row0, int out_rows,
+                                              int halo) {
+  return RowBlock{H, row0, out_rows, row0 - halo, out_rows + 2 * halo};
+}
 
 struct LdPlain {
   static __device__ __forceinline__ float ld(const float* p) { return *p; }
@@ -27,7 +49,10 @@ struct LdL2 {
 
 // ------------------------------------------------------------------ warp
 // out[c, p] = img[c] sampled at (x + 0.5 + dh, r + 0.5 + dv), clamp
-// addressing.  Nearest: point sampling, floor of the coordinate.
+// addressing, for the (C, H, W) source img and output planes of
+// `out_plane` floats: r is the global row, p the output offset (the two
+// differ for a shard's rows of the image).  Nearest: point sampling,
+// floor of the coordinate.
 // Bilinear: four taps in the convention of CUDA's texture linear filter
 // (weights from coord - 0.5), but with the weights computed in float32
 // instead of the texture unit's 9-bit fixed point, in tex_gather's term
@@ -38,17 +63,17 @@ struct LdL2 {
 template <bool BILINEAR>
 __device__ __forceinline__ void warp_px(const float* __restrict__ img,
                                         float* __restrict__ out, int C,
-                                        int H, int W, int r, int x, float dh,
+                                        int H, int W, size_t out_plane,
+                                        size_t p, int r, int x, float dh,
                                         float dv) {
   const size_t plane = (size_t)H * W;
-  const size_t p = (size_t)r * W + x;
   if (!BILINEAR) {
     float fx = floorf(((float)x + 0.5f) + dh);
     float fy = floorf(((float)r + 0.5f) + dv);
     fx = fminf(fmaxf(fx, 0.0f), (float)(W - 1));
     fy = fminf(fmaxf(fy, 0.0f), (float)(H - 1));
     const size_t src = (size_t)(int)fy * W + (int)fx;
-    for (int c = 0; c < C; ++c) out[c * plane + p] = img[c * plane + src];
+    for (int c = 0; c < C; ++c) out[c * out_plane + p] = img[c * plane + src];
     return;
   }
   const float xf = (((float)x + 0.5f) + dh) - 0.5f;
@@ -65,7 +90,7 @@ __device__ __forceinline__ void warp_px(const float* __restrict__ img,
     const float* __restrict__ s = img + c * plane;
     const float top = s[p00] * (1.0f - ax) + s[p01] * ax;
     const float bot = s[p10] * (1.0f - ax) + s[p11] * ax;
-    out[c * plane + p] = top * (1.0f - ay) + bot * ay;
+    out[c * out_plane + p] = top * (1.0f - ay) + bot * ay;
   }
 }
 
@@ -106,24 +131,33 @@ __device__ __forceinline__ float sep5_clamp_at(const float* x, int r, int c,
 }
 
 // ------------------------------------------------------------- smooth
-// One confidence-weighted plus-stencil pass at (r, x) over the (3, H, W)
-// state, weighted by the confidence plane of `in`; row 0 and column 0
-// keep their values; clamp addressing.  Term order of ops/smooth.py:
-// centre, left, right, up, down; num / den.
+// One confidence-weighted plus-stencil pass at (r, x) over the 3-plane
+// state, weighted by the confidence plane of `in`; global row 0 and
+// column 0 keep their values; clamp addressing at the image's edges.
+// in and out hold g.in_rows rows from global row g.in_row0; r is a
+// global row inside the image.  A neighbour row outside the band is
+// clamped to the band: such a value is wrong, and a row-sharded caller
+// gives the band enough halo rows that no output depends on it.  Term
+// order of ops/smooth.py: centre, left, right, up, down; num / den.
 template <class Ld>
-__device__ __forceinline__ void smooth_px(const float* in, float* out, int H,
-                                          int W, int r, int x) {
-  const size_t plane = (size_t)H * W;
-  const size_t p = (size_t)r * W + x;
+__device__ __forceinline__ void smooth_px(const float* in, float* out,
+                                          const RowBlock& g, int W, int r,
+                                          int x) {
+  const size_t plane = (size_t)g.in_rows * W;
+  const int lr = r - g.in_row0;
+  const size_t p = (size_t)lr * W + x;
   if (r == 0 || x == 0) {
     for (int c = 0; c < 3; ++c) out[c * plane + p] = Ld::ld(in + c * plane + p);
     return;
   }
   const float* cf = in + 2 * plane;
+  const int down = r + 1 < g.H ? r + 1 : g.H - 1;
   const size_t pl = p - 1;
-  const size_t pr = (size_t)r * W + (x + 1 < W ? x + 1 : W - 1);
-  const size_t pu = p - W;
-  const size_t pd = (size_t)(r + 1 < H ? r + 1 : H - 1) * W + x;
+  const size_t pr = (size_t)lr * W + (x + 1 < W ? x + 1 : W - 1);
+  const size_t pu =
+      (size_t)clampi(r - 1 - g.in_row0, 0, g.in_rows - 1) * W + x;
+  const size_t pd =
+      (size_t)clampi(down - g.in_row0, 0, g.in_rows - 1) * W + x;
   const float cc = Ld::ld(cf + p), cl = Ld::ld(cf + pl),
               cr = Ld::ld(cf + pr), cu = Ld::ld(cf + pu),
               cd = Ld::ld(cf + pd);
@@ -178,47 +212,64 @@ __device__ __forceinline__ void parabola(float l, float c, float r, float thr,
   conf = has_peak ? conf_in : k.no_peak;
 }
 
-// One 16 x 32 output tile (rows r0.., columns c0..) of the fused
-// correlate -> parabola -> update step, run by a (32, 16) thread block.
-// Per channel, L (halo 2, zero outside) and W (halo 3, clamped) are
-// staged in shared memory; each move's cross product is built there, its
-// row pass goes to a shared intermediate and its column pass to
-// registers.  bw2 is the clamp-blurred W^2, read through the clamped
-// shift.  Ends with every shared read done, so a block may run the next
-// tile straight away.
-template <class Ld>
+// One 16 x 32 output tile (rows r0.., columns c0.. of the output planes)
+// of the fused correlate -> parabola -> update step, run by a (32, 16)
+// thread block.  Per channel, L (halo 2, zero outside the image) and W
+// (halo 3, clamped to the image) are staged in shared memory; each move's
+// cross product is built there, its row pass goes to a shared
+// intermediate and its column pass to registers.  bw2 is the
+// clamp-blurred W^2, read through the clamped shift.  Ends with every
+// shared read done, so a block may run the next tile straight away.
+//
+// BAND (the row-sharded form): bl2, disp and out are the output planes
+// (g.out_rows rows from global row g.row0); left, warped and bw2 are the
+// haloed planes (g.in_rows rows from g.in_row0, at least 3 rows of
+// halo).  Every boundary resolves at global rows 0 and g.H - 1.  A tile
+// row past the output rows stages zeros or clamped rows where the band
+// ends; only that row's discarded result reads them.  Without BAND every
+// plane is the whole (3, g.H, W) image and the band terms fold away.
+template <class Ld, bool BAND = false>
 __device__ __forceinline__ void direction_tile(
     const float* left, const float* warped, const float* bl2,
-    const float* bw2, const float* disp, float* out, int H, int W, int r0,
-    int c0, float thr, bool replace, const Taps5& taps,
+    const float* bw2, const float* disp, float* out, const RowBlock& g,
+    int W, int r0, int c0, float thr, bool replace, const Taps5& taps,
     const DirConsts& k) {
   __shared__ float ls[kDirBY + 4][kDirBX + 4];  // L, rows/cols -2 .. +2
   __shared__ float ws[kDirBY + 6][kDirBX + 6];  // W clamped, -3 .. +3
   __shared__ float xs[kDirBY + 4][kDirBX + 4];  // cross product, 0 outside
   __shared__ float rs[kDirBY + 4][kDirBX];      // row pass of xs
+  const int H = g.H;
+  const int in_row0 = BAND ? g.in_row0 : 0;
+  const int in_rows = BAND ? g.in_rows : H;
+  const int out_rows = BAND ? g.out_rows : H;
   const int tx = threadIdx.x, ty = threadIdx.y;
   const int gr = r0 + ty, gc = c0 + tx;
-  const bool valid = gr < H && gc < W;
-  const size_t plane = (size_t)H * W;
+  const int grow0 = BAND ? g.row0 + r0 : r0;  // global row of the tile
+  const bool valid = gr < out_rows && gc < W;
+  const size_t plane = (size_t)out_rows * W;
+  const size_t hplane = (size_t)in_rows * W;
   const size_t p = (size_t)gr * W + gc;
   float dirs[5] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
 
   for (int c = 0; c < 3; ++c) {
-    const float* lp = left + c * plane;
-    const float* wp = warped + c * plane;
+    const float* lp = left + c * hplane;
+    const float* wp = warped + c * hplane;
     for (int i = ty; i < kDirBY + 4; i += kDirBY) {
-      const int rr = r0 - 2 + i;
+      const int rr = grow0 - 2 + i;
+      const int lr = rr - in_row0;
       for (int j = tx; j < kDirBX + 4; j += kDirBX) {
         const int cc = c0 - 2 + j;
-        const bool inside = rr >= 0 && rr < H && cc >= 0 && cc < W;
-        ls[i][j] = inside ? Ld::ld(lp + (size_t)rr * W + cc) : 0.0f;
+        const bool inside = rr >= 0 && rr < H && cc >= 0 && cc < W &&
+                            (!BAND || (lr >= 0 && lr < in_rows));
+        ls[i][j] = inside ? Ld::ld(lp + (size_t)lr * W + cc) : 0.0f;
       }
     }
     for (int i = ty; i < kDirBY + 6; i += kDirBY) {
-      const int rr = clampi(r0 - 3 + i, 0, H - 1);
+      const int rr = clampi(grow0 - 3 + i, 0, H - 1);
+      const int lr = BAND ? clampi(rr - in_row0, 0, in_rows - 1) : rr;
       for (int j = tx; j < kDirBX + 6; j += kDirBX) {
         const int cc = clampi(c0 - 3 + j, 0, W - 1);
-        ws[i][j] = Ld::ld(wp + (size_t)rr * W + cc);
+        ws[i][j] = Ld::ld(wp + (size_t)lr * W + cc);
       }
     }
     __syncthreads();
@@ -229,7 +280,7 @@ __device__ __forceinline__ void direction_tile(
       // cross = L * shift_image(W, dx, dy) inside the image, 0 outside
       // (the zero boundary of the cross-product blur).
       for (int i = ty; i < kDirBY + 4; i += kDirBY) {
-        const int rr = r0 - 2 + i;
+        const int rr = grow0 - 2 + i;
         for (int j = tx; j < kDirBX + 4; j += kDirBX) {
           const int cc = c0 - 2 + j;
           const bool inside = rr >= 0 && rr < H && cc >= 0 && cc < W;
@@ -247,10 +298,11 @@ __device__ __forceinline__ void direction_tile(
                                rs[ty + 2][tx], rs[ty + 3][tx],
                                rs[ty + 4][tx]);
         const float num = bc * bc;
-        const size_t q = (size_t)clampi(gr + dy, 0, H - 1) * W +
-                         clampi(gc + dx, 0, W - 1);
+        const size_t q =
+            (size_t)(clampi(grow0 + ty + dy, 0, H - 1) - in_row0) * W +
+            clampi(gc + dx, 0, W - 1);
         const float den = Ld::ld(bl2 + c * plane + p) *
-                          Ld::ld(bw2 + c * plane + q);
+                          Ld::ld(bw2 + c * hplane + q);
         float ratio = num / den;
         if (ratio > 1.0f) ratio = 1.0f;  // NaN passes through, as in
         if (ratio < 0.0f) ratio = 0.0f;  // correlation_ratio

@@ -19,6 +19,14 @@
 // needs no window.  Coordinates are computed in float32 exactly as
 // _dest_coords + tex_gather do, so the result is bit-exact.  Smooth
 // fields keep neighbouring threads on neighbouring source addresses.
+//
+// Row-sharded form (warp_windowed / warp_windowed_dyn with row_halo=True,
+// warp.py:356-385, :631-664): the output is a shard's rows [row0, row0 +
+// Hl) of the level, from its own (Hl, W) disparity planes, and the source
+// is the whole (C, H, W) right image of the level, gathered once per level
+// by the caller; sources and clamps are in global rows.  The TPU form
+// gathers from the shard's block plus a window of halo rows and needs the
+// overflow guard when a field leaves it; the whole image needs neither.
 #include "stencils.cuh"
 
 namespace {
@@ -29,29 +37,36 @@ template <bool BILINEAR>
 __global__ void __launch_bounds__(kThreads)
     warp_kernel(const float* __restrict__ img, const float* __restrict__ dh,
                 const float* __restrict__ dv, float* __restrict__ out, int C,
-                int H, int W) {
+                int H, int W, int Hl, int row0) {
   const int x = blockIdx.x * kThreads + threadIdx.x;
   if (x >= W) return;
-  for (int r = blockIdx.y; r < H; r += gridDim.y) {
+  const size_t out_plane = (size_t)Hl * W;
+  for (int r = blockIdx.y; r < Hl; r += gridDim.y) {
     const size_t p = (size_t)r * W + x;
-    ugsm::warp_px<BILINEAR>(img, out, C, H, W, r, x, dh[p], dv[p]);
+    ugsm::warp_px<BILINEAR>(img, out, C, H, W, out_plane, p, row0 + r, x,
+                            dh[p], dv[p]);
   }
 }
 
 }  // namespace
 
-// bilinear == 0: point sampling; != 0: CUDA linear filtering with float32
-// weights (never the texture unit's 9-bit filter).
+// img: (C, H, W); dh, dv, out: rows [row0, row0 + Hl) of the (H, W) grid
+// (Hl = H, row0 = 0 for the whole image).  bilinear == 0: point sampling;
+// != 0: CUDA linear filtering with float32 weights (never the texture
+// unit's 9-bit filter).
 UGSM_API int ugsm_warp(const float* img, const float* dh, const float* dv,
-                       float* out, int C, int H, int W, int bilinear,
-                       void* stream) {
-  if (C < 1 || H < 1 || W < 1) return (int)cudaErrorInvalidValue;
-  const dim3 grid((W + kThreads - 1) / kThreads, H < 65535 ? H : 65535);
+                       float* out, int C, int H, int W, int Hl, int row0,
+                       int bilinear, void* stream) {
+  if (C < 1 || H < 1 || W < 1 || Hl < 1 || row0 < 0 || row0 + Hl > H)
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid((W + kThreads - 1) / kThreads, Hl < 65535 ? Hl : 65535);
   const cudaStream_t s = (cudaStream_t)stream;
   if (bilinear) {
-    warp_kernel<true><<<grid, kThreads, 0, s>>>(img, dh, dv, out, C, H, W);
+    warp_kernel<true><<<grid, kThreads, 0, s>>>(img, dh, dv, out, C, H, W, Hl,
+                                                row0);
   } else {
-    warp_kernel<false><<<grid, kThreads, 0, s>>>(img, dh, dv, out, C, H, W);
+    warp_kernel<false><<<grid, kThreads, 0, s>>>(img, dh, dv, out, C, H, W,
+                                                 Hl, row0);
   }
   return (int)cudaGetLastError();
 }

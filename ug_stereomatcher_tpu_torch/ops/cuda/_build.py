@@ -14,7 +14,10 @@ against their plain PyTorch versions.  Never add ``--use_fast_math``.
 Each wrapper adds one to its launch counter where it launches its kernel
 (one count per wrapper call, however many CUDA kernels the call runs).
 The nearest and bilinear forms of warp and resample count under their own
-names (``warp`` / ``warp_bilinear``, ``resample`` / ``resample_bilinear``).
+names (``warp`` / ``warp_bilinear``, ``resample`` / ``resample_bilinear``),
+and so do the row-sharded forms of warp, direction and smooth
+(``warp_row_halo``, ``warp_bilinear_row_halo``, ``direction_row_halo``,
+``smooth_row_halo``).
 """
 
 from __future__ import annotations
@@ -51,10 +54,11 @@ SIGNATURES = {
                               _P],
     "ugsm_resample_bilinear": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                _F, _I, _P],
-    "ugsm_warp": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
-    "ugsm_direction_update": [_P, _P, _P, _P, _P, _P, _I, _I, _F, _I,
-                              _F, _F, _F, _F, _F, _F, _F, _F, _P],
-    "ugsm_smooth_average": [_P, _P, _P, _P, _I, _I, _I, _F, _P],
+    "ugsm_warp": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "ugsm_direction_update": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                              _F, _I, _F, _F, _F, _F, _F, _F, _F, _F, _P],
+    "ugsm_smooth_average": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
+                            _P],
     "ugsm_level_resident": [_P, _P, _P, _P, _P, _P, _PF, _I, _I, _I, _I,
                             _I, _I, _F, _F, _F, _F, _F, _F, _F, _F, _F, _I,
                             _P],

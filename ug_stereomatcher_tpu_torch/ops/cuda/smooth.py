@@ -8,41 +8,87 @@ confidence from before it; row 0 and column 0 kept; clamp addressing),
 then the shared-memory separable 3-tap average of blur.cu.  The term
 order is that of ops.smooth (centre, left, right, up, down; num / den)
 with no fused multiply-add, so it is bit-exact against the plain version.
+
+The row-sharded form (``row0`` given; ``row_halo=True`` of the TPU
+kernel, smooth.py:48-110 and :172-202) smooths one shard's rows with
+``smooth_halo_rows(n)`` real rows of halo on each side: row 0 and the
+clamps resolve at the image's global edges, and each pass spoils one more
+row at each edge of the band, never the shard's own rows.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
 from ug_stereomatcher_tpu_torch.config import average_kernel
 from ug_stereomatcher_tpu_torch.ops.conv import blur_average_clamp
 from ug_stereomatcher_tpu_torch.ops.cuda._build import check_planes, launch, ptr
+from ug_stereomatcher_tpu_torch.ops.resample import band_rows
 from ug_stereomatcher_tpu_torch.ops.smooth import weighted_smooth
 
 
-def fused_smooth_average_plain(state: torch.Tensor,
-                               n_passes: int) -> torch.Tensor:
-    """Plain PyTorch version: n weighted_smooth passes + the average."""
+def smooth_halo_rows(n_passes: int) -> int:
+    """Halo rows the row-sharded form needs on each side for ``n_passes``
+    passes and the 3-tap average."""
+    return n_passes + 1
+
+
+def fused_smooth_average_plain(state: torch.Tensor, n_passes: int,
+                               row0: Optional[int] = None,
+                               global_h: Optional[int] = None
+                               ) -> torch.Tensor:
+    """Plain PyTorch version: n weighted_smooth passes + the average.  In
+    the row-sharded form the band's rows outside the image are re-clamped
+    to the image's edge rows before every pass and before the average."""
+    if row0 is None:
+        for _ in range(n_passes):
+            state = weighted_smooth(state, state[2])
+        return blur_average_clamp(state)
+    halo = smooth_halo_rows(n_passes)
+    rows = state.shape[-2] - 2 * halo
+    edge, _ = band_rows(state.shape[-2], row0 - halo, global_h, state.device)
     for _ in range(n_passes):
-        state = weighted_smooth(state, state[2])
-    return blur_average_clamp(state)
+        state = state.index_select(-2, edge)
+        state = weighted_smooth(state, state[2], row0 - halo)
+    out = blur_average_clamp(state.index_select(-2, edge))
+    return out[..., halo:halo + rows, :].contiguous()
 
 
-def fused_smooth_average(state: torch.Tensor, n_passes: int) -> torch.Tensor:
+def fused_smooth_average(state: torch.Tensor, n_passes: int,
+                         row0: Optional[int] = None,
+                         global_h: Optional[int] = None) -> torch.Tensor:
     """``n_passes`` smoothing passes and the 3-tap average over a (3, H, W)
-    float32 [disp_h, disp_v, conf] state.  A CUDA tensor runs the kernel;
-    a CPU tensor runs the plain version."""
+    float32 [disp_h, disp_v, conf] state.
+
+    Row-sharded form: with ``row0`` and ``global_h`` given, ``state`` is
+    (3, Hl + 2 h, W) with h = smooth_halo_rows(n_passes), the rows [row0 -
+    h, row0 + Hl + h) of a ``global_h``-row image (rows outside the image
+    may hold anything), and the result is the (3, Hl, W) rows [row0, row0
+    + Hl).  A CUDA tensor runs the kernel; a CPU tensor runs the plain
+    version."""
     if state.ndim != 3 or state.shape[0] != 3:
         raise ValueError(f"expected (3, H, W) state, got {tuple(state.shape)}")
     if n_passes < 0:
         raise ValueError(f"n_passes must be >= 0, got {n_passes}")
+    _, rows, W = state.shape
+    halo = 0 if row0 is None else smooth_halo_rows(n_passes)
+    Hl = rows - 2 * halo
+    if row0 is not None and (global_h is None or Hl < 1
+                             or not 0 <= row0 <= global_h - Hl):
+        raise ValueError(f"a band of {rows} rows with {halo} halo rows on "
+                         f"each side does not lie in an image of "
+                         f"global_h={global_h} rows from row {row0}")
     if check_planes("fused_smooth_average", state).type == "cpu":
-        return fused_smooth_average_plain(state, n_passes)
-    _, H, W = state.shape
-    out = torch.empty_like(state)
+        return fused_smooth_average_plain(state, n_passes, row0, global_h)
+    out = torch.empty((3, Hl, W), dtype=state.dtype, device=state.device)
     scratch = torch.empty((2,) + tuple(state.shape), dtype=state.dtype,
                           device=state.device)
     tap = float(average_kernel()[1])
-    launch("ugsm_smooth_average", "smooth", ptr(state), ptr(out),
-           ptr(scratch[0]), ptr(scratch[1]), H, W, int(n_passes), tap)
+    launch("ugsm_smooth_average",
+           "smooth" if row0 is None else "smooth_row_halo", ptr(state),
+           ptr(out), ptr(scratch[0]), ptr(scratch[1]),
+           rows if row0 is None else global_h, W, Hl, row0 or 0, halo,
+           int(n_passes), tap)
     return out

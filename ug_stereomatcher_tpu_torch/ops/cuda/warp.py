@@ -13,9 +13,18 @@ are neighbours and come from cache).  Coordinates and bilinear weights
 are rounded in float32 exactly as the JAX gather rounds them (never the
 texture unit's 9-bit filter), so both forms are bit-exact against their
 plain versions.
+
+The row-sharded form (``row0`` given; ``row_halo=True`` of both TPU
+kernels, warp.py:356-385 and :631-664) warps one shard's rows of the
+level from the whole right image, which the caller gathers once per
+level (the route of the JAX ``_sharded_warp``, spatial.py:173-193): the
+same gather with a row offset, exact for every field, so it needs none of
+the TPU form's halo windows, tiers or overflow guard.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -24,12 +33,15 @@ from ug_stereomatcher_tpu_torch.ops.cuda._build import check_planes, launch, ptr
 from ug_stereomatcher_tpu_torch.ops.resample import warp_by_disparity
 
 COUNTERS = {"nearest": "warp", "bilinear": "warp_bilinear"}
+ROW_HALO_COUNTERS = {"nearest": "warp_row_halo",
+                     "bilinear": "warp_bilinear_row_halo"}
 
 
 def warp_plain(img: torch.Tensor, disp_x: torch.Tensor, disp_y: torch.Tensor,
-               method: str = "nearest") -> torch.Tensor:
+               method: str = "nearest",
+               row0: Optional[int] = None) -> torch.Tensor:
     """Plain PyTorch version: ops.resample.warp_by_disparity."""
-    return warp_by_disparity(img, disp_x, disp_y, method)
+    return warp_by_disparity(img, disp_x, disp_y, method, row0 or 0)
 
 
 def warp_nearest_plain(img: torch.Tensor, disp_x: torch.Tensor,
@@ -39,25 +51,35 @@ def warp_nearest_plain(img: torch.Tensor, disp_x: torch.Tensor,
 
 
 def warp(img: torch.Tensor, disp_x: torch.Tensor, disp_y: torch.Tensor,
-         method: str = "nearest") -> torch.Tensor:
+         method: str = "nearest", row0: Optional[int] = None) -> torch.Tensor:
     """dst[c, y, x] = img[c] sampled at (x + 0.5 + disp_x, y + 0.5 +
     disp_y) in texel coordinates with clamp addressing: point sampling
     (``"nearest"``) or four float32-weighted taps (``"bilinear"``).  img
-    (C, H, W) float32, disp_x and disp_y (H, W) float32.  A CUDA tensor
-    runs the kernel; a CPU tensor runs the plain version."""
+    (C, H, W) float32, disp_x and disp_y (H, W) float32.
+
+    Row-sharded form: with ``row0`` given, disp_x and disp_y are (Hl, W),
+    the rows [row0, row0 + Hl) of the (H, W) grid, img is still the whole
+    (C, H, W) image, and the result is those (C, Hl, W) rows of the warp.
+    A CUDA tensor runs the kernel; a CPU tensor runs the plain version."""
     if method not in INTERP_METHODS:
         raise unsupported_interp(method)
     if img.ndim != 3:
         raise ValueError(f"expected (C, H, W), got {tuple(img.shape)}")
     C, H, W = img.shape
-    if disp_x.shape != (H, W) or disp_y.shape != (H, W):
-        raise ValueError(f"disparity planes must be {(H, W)}, got "
+    Hl = disp_x.shape[0] if disp_x.ndim == 2 else -1
+    start = 0 if row0 is None else row0
+    if (disp_x.shape != (Hl, W) or disp_y.shape != (Hl, W)
+            or (row0 is None and Hl != H)
+            or not 0 <= start <= H - max(Hl, 1)):
+        raise ValueError(f"disparity planes must be (rows, {W}) inside the "
+                         f"{H}-row image from row {start}, got "
                          f"{tuple(disp_x.shape)} and {tuple(disp_y.shape)}")
     if check_planes("warp", img, disp_x, disp_y).type == "cpu":
-        return warp_plain(img, disp_x, disp_y, method)
-    out = torch.empty_like(img)
-    launch("ugsm_warp", COUNTERS[method], ptr(img), ptr(disp_x), ptr(disp_y),
-           ptr(out), C, H, W, int(method == "bilinear"))
+        return warp_plain(img, disp_x, disp_y, method, row0)
+    out = torch.empty((C, Hl, W), dtype=img.dtype, device=img.device)
+    counters = COUNTERS if row0 is None else ROW_HALO_COUNTERS
+    launch("ugsm_warp", counters[method], ptr(img), ptr(disp_x), ptr(disp_y),
+           ptr(out), C, H, W, Hl, start, int(method == "bilinear"))
     return out
 
 

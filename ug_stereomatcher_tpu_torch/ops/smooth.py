@@ -16,9 +16,11 @@ import torch
 from ug_stereomatcher_tpu_torch.ops.resample import shift_image
 
 
-def weighted_smooth(disp: torch.Tensor, conf: torch.Tensor) -> torch.Tensor:
+def weighted_smooth(disp: torch.Tensor, conf: torch.Tensor,
+                    row0: int = 0) -> torch.Tensor:
     """One smoothing pass over the last two axes of ``disp`` (..., H, W),
-    weighted by ``conf`` (H, W)."""
+    weighted by ``conf`` (H, W).  ``row0`` is the global row of the first
+    row (a band of a taller image keeps only the image's row 0)."""
     num = disp * conf
     den = conf
     for (dx, dy) in ((-1, 0), (1, 0), (0, -1), (0, 1)):
@@ -27,7 +29,7 @@ def weighted_smooth(disp: torch.Tensor, conf: torch.Tensor) -> torch.Tensor:
         den = den + cs
     out = num / den
     h, w = disp.shape[-2], disp.shape[-1]
-    row = torch.arange(h, device=disp.device)[:, None]
+    row = torch.arange(row0, row0 + h, device=disp.device)[:, None]
     col = torch.arange(w, device=disp.device)[None, :]
     keep = (row == 0) | (col == 0)
     return torch.where(keep, disp, out)
