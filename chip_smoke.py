@@ -14,9 +14,11 @@ Phases (any failure exits non-zero before the last line is printed):
    (202 x 306), the row-sharded forms of warp (both methods), direction
    and smooth on the middle (timed) and bottom shard of four at those
    levels (816 and 51 rows), and the level-resident kernel at levels 8
-   and 13 in both methods with replace_first on and off; each kernel's
-   least possible time on the card (bound) and, where one PyTorch call
-   computes the same function, that call's time;
+   and 13 in both methods with replace_first on and off, with the grid
+   barriers each timed launch passed and its time by phase (counted by
+   block 0 on the card; more than 3 barriers per iteration fails); each
+   kernel's least possible time on the card (bound) and, where one
+   PyTorch call computes the same function, that call's time;
 3. slices: StereoEngine.match on the 1/f octave scene with a known 3 px
    shift at 3264 x 4928, (a) nearest with the level-resident gate, (b)
    nearest with every level per iteration, (c) bilinear; then
@@ -29,7 +31,7 @@ Phases (any failure exits non-zero before the last line is printed):
    one warm match (torch.profiler) with the device's busy share; then two
    816 x 1232 pairs on a 2 x 2 mesh of this card against match per pair,
    the 1 x N mesh across the cards where there are several, and levels
-   5-13 of the nearest match timed level-resident against per iteration;
+   4-13 of the nearest match timed level-resident against per iteration;
 4. lockstep: pyramid level 4 (815 x 1231) refined from one input state
    by the kernels and by the plain versions on the card, held to the
    repo's quantile rule (q99 <= 2e-3, max <= 0.05);
@@ -50,12 +52,22 @@ every tree once, in its own process that imports the port from that
 tree and builds its kernels there, in an order reversed every other
 round (parent, change, change, parent, ...).  A process times
 StereoEngine.match nearest on the bench scene, warm (host clock around
-a synchronised call, median of ``--matches`` after one warm-up), and
-the whole-image blur, warp, direction and smooth (n = 10) kernels at
-16 MP with cuda_ms.  It prints a JSON line per process, the nvidia-smi
-line and the medians per tree:
+a synchronised call, median of ``--matches`` after one warm-up), the
+whole-image blur, warp, direction and smooth (n = 10) kernels at 16 MP,
+the level-resident kernel at levels 8 and 13 (nearest, replace_first
+off) and the nearest and bilinear resample at the sqrt(2) subsample of
+six stacked 16 MP planes, each with cuda_ms.  It prints a JSON line per
+process, the nvidia-smi line and the medians per tree:
     python3 chip_smoke.py --ab parent=_smoke_checkout/parent --ab change=. \\
         [--rounds 2] [--matches 7] [--out FILE.json]
+
+With ``--gates G1,G2,...`` (level-resident gates in pixels) it runs none
+of the phases either: it prints the level table of phase 3 (levels
+4-13, resident against per iteration) and then times StereoEngine.match
+nearest warm at each gate (``resident_max_pixels``), one match per gate
+per round, the order of the gates reversed every other round:
+    python3 chip_smoke.py --gates 65536,131072,262144 [--rounds 8] \\
+        [--out FILE.json]
 """
 
 from __future__ import annotations
@@ -75,7 +87,7 @@ H, W = 3264, 4928          # the published 16 MP frame
 COARSE_LEVEL = 8           # 202 x 306 on the 16 MP chain
 SMALL_LEVEL = 13           # 34 x 53, the coarsest
 LOCKSTEP_LEVEL = 4         # 815 x 1231
-TABLE_LEVELS = range(5, 14)
+TABLE_LEVELS = range(4, 14)
 SEED = 0
 
 # Peak rates of one H100 SXM at its 700 W limit (NVIDIA's data sheet):
@@ -474,7 +486,8 @@ def check_level(dev, cfg, report: dict) -> None:
 
     chain = cfg.dims_chain(H, W)
     print(f"level kernel: at most {level.max_coresident_blocks('nearest')} "
-          f"co-resident blocks of 512 threads")
+          f"co-resident blocks of 512 threads (n_smooth = 5); n_smooth at "
+          f"most {level.max_smooth_passes('nearest')}")
     for lv in (COARSE_LEVEL, SMALL_LEVEL):
         h, w = chain[lv]
         left, right, state = level_inputs(dev, h, w)
@@ -499,8 +512,31 @@ def check_level(dev, cfg, report: dict) -> None:
                         rule="close" if method == "nearest" else "allclose",
                         work=(12 * h * w * 4.0, mi * per_px * h * w),
                         library=library, timed=timed)
+                if timed:
+                    count_barriers(report["level"]["cases"][-1], level,
+                                   (left, right, state, thr, n, rep,
+                                    cfg.conf_consts, method), mi)
         del left, right, state
     torch.cuda.empty_cache()
+
+
+def count_barriers(case: dict, level, args, mi: int) -> None:
+    """The grid barriers one launch of the level kernel passed and its
+    block 0's clock per phase, counted on the card, printed beside the
+    kernel's time (each phase's share of block 0's cycles times the median
+    time, per iteration); more than 3 barriers per iteration fails."""
+    prof = level.profile_level(*args)
+    n, cycles = prof["grid_barriers"], prof["cycles"]
+    total = sum(cycles.values())
+    us = {k: case["ms"] * 1e3 * c / total / mi for k, c in cycles.items()}
+    case.update(grid_barriers=n, barriers_per_iteration=n / mi,
+                phase_cycles=cycles, phase_us_per_iteration=us)
+    print(f"level {case['tag']} grid_barriers={n} over {mi} iterations "
+          f"({n / mi:.2f} per iteration) ms={case['ms']:.4f}")
+    print(f"level {case['tag']} us per iteration by phase (block 0): "
+          + " ".join(f"{k}={v:.2f}" for k, v in us.items()))
+    if n > 3 * mi:
+        fail(f"level {case['tag']}: {n} grid barriers over {mi} iterations")
 
 
 def graph_replay(fn):
@@ -684,7 +720,7 @@ def across_cards(dev, cfg, left, right, ref, report: dict) -> None:
 
 
 def level_table(dev, cfg, left, right, report: dict) -> None:
-    """Phase 3b: each level 5-13 of the nearest 16 MP match, from the
+    """Phase 3b: each level 4-13 of the nearest 16 MP match, from the
     state the next coarser level hands it, timed level-resident against
     per iteration (CUDA events; both routes return the same bits)."""
     from ug_stereomatcher_tpu_torch import match as match_mod
@@ -794,7 +830,8 @@ KERNELS = {
 
 
 AB_TIMES = ("match_warm_median_s", "blur_ms", "warp_ms", "direction_ms",
-            "smooth_ms")
+            "smooth_ms", "level8_ms", "level13_ms", "resample_ms",
+            "resample_bilinear_ms")
 
 
 def ab_child(tree: str, matches: int) -> dict:
@@ -803,7 +840,7 @@ def ab_child(tree: str, matches: int) -> dict:
     import ug_stereomatcher_tpu_torch as port
     from ug_stereomatcher_tpu_torch import MatcherConfig, StereoEngine, scene
     from ug_stereomatcher_tpu_torch.ops.cuda import (
-        blur, direction, smooth, warp)
+        blur, direction, level, resample, smooth, warp)
 
     where = Path(port.__file__).resolve()
     if Path(tree).resolve() not in where.parents:
@@ -834,7 +871,7 @@ def ab_child(tree: str, matches: int) -> dict:
                          rand(H, W, lo=-1.0, hi=1.0),
                          rand(H, W, lo=0.05, hi=1.0)])
     dh, dv = rand(H, W, lo=-24.0, hi=30.0), rand(H, W, lo=-12.0, hi=12.0)
-    return {
+    times = {
         "tree": tree, "match_warm_s": warm,
         "match_warm_median_s": statistics.median(warm),
         "blur_ms": cuda_ms(lambda: blur.fused_blur_gaussian(img, "clamp")),
@@ -843,6 +880,32 @@ def ab_child(tree: str, matches: int) -> dict:
             img, other, bl2, state, 1.0, False)),
         "smooth_ms": cuda_ms(lambda: smooth.fused_smooth_average(state, 10)),
     }
+    del img, other, bl2, state, dh, dv
+
+    cfg = MatcherConfig()
+    chain = cfg.dims_chain(H, W)
+    for lv in (COARSE_LEVEL, SMALL_LEVEL):
+        args = level_inputs(dev, *chain[lv])
+        mi = cfg.iters_for_level(lv)
+        args += (cfg.threshold_schedule(mi), cfg.smooth_passes_for_level(lv),
+                 False, cfg.conf_consts)
+        times[f"level{lv}_ms"] = cuda_ms(
+            lambda: level.level_resident_match(*args))
+    stacked = rand(6, H, W, hi=255.0)
+    (h1, w1) = chain[1]
+
+    def coord_of(t):
+        return t * cfg.scale
+    iy, ix = (torch.from_numpy(resample.nearest_indices(n, m, coord_of)).to(
+        dev) for n, m in ((h1, H), (w1, W)))
+    times["resample_ms"] = cuda_ms(
+        lambda: resample.resample_static(stacked, iy, ix))
+    (iy, wy), (ix, wx) = (
+        (torch.from_numpy(a).to(dev) for a in resample.bilinear_taps(
+            n, m, coord_of)) for n, m in ((h1, H), (w1, W)))
+    times["resample_bilinear_ms"] = cuda_ms(
+        lambda: resample.resample_static(stacked, iy, ix, 1.0, wy, wx))
+    return times
 
 
 def ab(trees, rounds: int, matches: int, out) -> int:
@@ -877,15 +940,49 @@ def ab(trees, rounds: int, matches: int, out) -> int:
     return 0
 
 
+def gate_sweep(dev, cfg, left, right, gates, rounds: int,
+               report: dict) -> None:
+    """--gates: the warm 16 MP nearest latency at each level-resident
+    gate, one match per gate per round, the order of the gates reversed
+    every other round (host clock around a synchronised call)."""
+    from ug_stereomatcher_tpu_torch import StereoEngine
+
+    engines = {g: StereoEngine(cfg, device=dev, resident_max_pixels=g)
+               for g in gates}
+    times = {g: [] for g in gates}
+    for g in gates:  # warm every route once
+        engines[g].match(left, right)
+    torch.cuda.synchronize()
+    for r in range(rounds):
+        for g in (gates if r % 2 == 0 else gates[::-1]):
+            t0 = time.perf_counter()
+            engines[g].match(left, right)
+            torch.cuda.synchronize()
+            times[g].append(time.perf_counter() - t0)
+    rows = []
+    for g in gates:
+        ts = sorted(times[g])
+        row = {"gate_pixels": g, "warm_median_s": statistics.median(ts),
+               "q1_s": ts[len(ts) // 4], "q3_s": ts[(3 * len(ts)) // 4],
+               "warm_s": times[g]}
+        rows.append(row)
+        print(f"gate_sweep gate={g} warm_median_s={row['warm_median_s']:.4f}"
+              f" q1={row['q1_s']:.4f} q3={row['q3_s']:.4f}")
+    report["gate_sweep"] = rows
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="write the full report here as JSON")
     ap.add_argument("--ab", action="append", default=[],
                     metavar="NAME=PATH",
                     help="compare source trees instead (give two or more)")
-    ap.add_argument("--rounds", type=int, default=2)
+    ap.add_argument("--rounds", type=int,
+                    help="rounds of --ab (default 2) or --gates (8)")
     ap.add_argument("--matches", type=int, default=7)
     ap.add_argument("--ab-child", help=argparse.SUPPRESS)
+    ap.add_argument("--gates", help="time the match at these comma-"
+                    "separated level-resident gates instead")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -899,7 +996,7 @@ def main() -> int:
         trees = [t.split("=", 1) for t in args.ab]
         if len(trees) < 2 or any(len(t) != 2 for t in trees):
             ap.error("give at least two --ab NAME=PATH")
-        return ab(trees, args.rounds, args.matches, args.out)
+        return ab(trees, args.rounds or 2, args.matches, args.out)
     from ug_stereomatcher_tpu_torch import MatcherConfig, scene
     from ug_stereomatcher_tpu_torch.device import resolve_device
     from ug_stereomatcher_tpu_torch.ops.cuda import _build
@@ -913,6 +1010,18 @@ def main() -> int:
           f"torch={torch.__version__} cuda={torch.version.cuda} "
           f"python={sys.version.split()[0]}")
     print(f"nvidia-smi {smi}")
+    if args.gates:
+        gates = [int(g) for g in args.gates.split(",")]
+        left_np, right_np = scene.make_pair(H, W, seed=SEED)
+        left = torch.from_numpy(left_np).to(dev)
+        right = torch.from_numpy(right_np).to(dev)
+        report = {"device": kind, "nvidia_smi": smi}
+        level_table(dev, cfg, left, right, report)
+        gate_sweep(dev, cfg, left, right, gates, args.rounds or 8, report)
+        if args.out:
+            with open(args.out, "w") as fh:
+                json.dump(report, fh, indent=1)
+        return 0
     t0 = time.perf_counter()
     _build.library()
     build_s = time.perf_counter() - t0

@@ -65,6 +65,12 @@ RESAMPLE_CASES = {
     "subsample_2": ((6, 97, 211), (48, 105), lambda v: v * 2.0, 1.0),
     "upsample": ((3, 68, 149), (97, 211), lambda v: v * (1.0 / SCALE), SCALE),
 }
+# One output row, every residue of W2 mod 4 (a row start is rarely 16-byte
+# aligned) on both sides of the nearest kernel's 128-column chunks, 1, 3
+# and 6 planes, scaled values.
+RESAMPLE_CASES.update({
+    f"row_w{w2}_c{c}": ((c, 3, 2 * w2 + 3), (1, w2), lambda v: v * 2.0, 0.5)
+    for c in (1, 3, 6) for w2 in (128, 129, 130, 131, 261)})
 
 
 @pytest.mark.parametrize("case", sorted(RESAMPLE_CASES))
@@ -122,21 +128,47 @@ def _level_inputs(dev, h, w, seed=0):
 
 
 @pytest.mark.parametrize("method", ["nearest", "bilinear"])
-@pytest.mark.parametrize("h,w,replace", [(34, 53, True), (101, 153, False)])
-def test_level_resident_bit_exact(cuda, method, h, w, replace):
+@pytest.mark.parametrize("replace", [False, True])
+@pytest.mark.parametrize("n_smooth", [0, 5, 10])
+@pytest.mark.parametrize("h,w", [(7, 9), (17, 33), (34, 53), (101, 153)])
+def test_level_resident_bit_exact(cuda, method, h, w, n_smooth, replace):
+    """Shapes below one 16 x 32 tile, one pixel past a tile edge in each
+    axis, and several tiles."""
     cfg = MatcherConfig(level_cutoff=6)
     left, right, state = _level_inputs(cuda, h, w)
     thresholds = cfg.threshold_schedule(6)
     assert_same(level.level_resident_match, level.level_resident_match_plain,
-                left, right, state, thresholds, 5, replace, CONSTS, method)
+                left, right, state, thresholds, n_smooth, replace, CONSTS,
+                method)
 
 
 def test_level_resident_grid_too_large_raises(cuda):
     left, right, state = _level_inputs(cuda, 34, 53)
-    too_many = level.max_coresident_blocks("nearest") + 1
+    too_many = level.max_coresident_blocks("nearest", 5) + 1
     with pytest.raises(RuntimeError, match="ugsm_level_resident"):
         level.level_resident_match(left, right, state, (1.0,), 5, True,
                                    grid_blocks=too_many)
+
+
+@pytest.mark.parametrize("method", ["nearest", "bilinear"])
+def test_level_resident_window_too_large_raises(cuda, method):
+    left, right, state = _level_inputs(cuda, 34, 53)
+    most = level.max_smooth_passes(method)
+    assert most >= 10
+    assert level.max_coresident_blocks(method, most) >= 1
+    with pytest.raises(ValueError, match="at most"):
+        level.level_resident_match(left, right, state, (1.0,), most + 1,
+                                   True, method=method)
+
+
+@pytest.mark.parametrize("mi", [1, 6])
+def test_level_resident_two_barriers_per_iteration(cuda, mi):
+    left, right, state = _level_inputs(cuda, 101, 153)
+    thresholds = MatcherConfig(level_cutoff=6).threshold_schedule(mi)
+    prof = level.profile_level(left, right, state, thresholds, 5, False)
+    assert prof["grid_barriers"] == 2 * mi - 1
+    assert set(prof["cycles"]) == set(level.PHASES)
+    assert all(c > 0 for c in prof["cycles"].values()), prof
 
 
 @pytest.mark.parametrize("threshold,replace", [(1.0, False), (0.55, True)])

@@ -90,11 +90,12 @@ def test_match_level_routes_agree_on_cpu(method):
 
 
 def test_gate_admits_levels_8_to_13_at_16mp():
+    """Levels 8-13 and, since the gate was set anew by measurement, 6-7."""
     dims = MatcherConfig().dims_chain(3264, 4928)
     resident = [i for i, (h, w) in enumerate(dims)
                 if tmatch.uses_level_resident(h, w)]
-    assert resident == list(range(8, 14))
-    assert dims[8] == (202, 306) and dims[7] == (287, 434)
+    assert resident == list(range(6, 14))
+    assert dims[6] == (407, 615) and dims[5] == (576, 870)
     assert not tmatch.uses_level_resident(*dims[8], resident_max_pixels=0)
 
 

@@ -5,34 +5,62 @@
 // Each iteration is warp -> G(W^2) -> direction update -> n smoothing
 // passes -> 3-tap average, as in match_level's per-iteration path; G(L^2)
 // is computed once per level.  The TPU kernel keeps every plane in VMEM
-// to cut its dispatch floor.  Bound on the card: on the coarse levels it
-// runs on, neither memory nor arithmetic but latency (a level-8 plane is
-// 247 KB, the whole working set about 5 MB), and on the per-iteration path
-// the host's launch rate.  Design:
+// to cut its dispatch floor.
 //
-// * one cooperative launch per level, with as many 512-thread blocks as
-//   the level needs and the card can hold at once (the occupancy
-//   calculator times the SM count); the C entry point refuses a larger
-//   grid instead of launching one that could deadlock;
-// * every plane lives in device memory, so the working set sits in the
-//   50 MB L2; planes written during the launch are read with ld.global.cg
-//   (L2, never the non-coherent L1), the inputs with plain loads;
-// * one grid barrier between dependent phases: after the warp, after
-//   G(W^2), after the direction update, after each smoothing pass and
-//   after the average, 4 + n per iteration.  A separable blur needs no
-//   barrier between its passes: the column pass recomputes the five
-//   row-pass values it reads (sep5_clamp_at), which rounds exactly like
-//   the two-pass tile;
-// * the per-pixel and per-tile math is the per-iteration kernels' own
-//   (stencils.cuh), compiled under the same --fmad=false, so the result is
-//   bit-exact against the per-iteration chain.  The port's warp is an
-//   exact gather, so unlike the TPU kernel there is no warp window, no
-//   overflow flag and no recompute path.
+// Bound on the card: neither bytes nor operations (a level-8 plane is
+// 247 KB, the working set a few MB in the 50 MB L2, and the arithmetic a
+// few microseconds of the card) but the count of dependent phases and the
+// latency of each: a grid-wide phase costs an L2 round trip, a barrier
+// and a block's pass over its tile, whatever the level's size.  With a
+// barrier after every step (warp, G(W^2), direction, each smoothing pass,
+// average: 4 + n per iteration) a level takes about 1.3 ms on an H100 at
+// every level from 8 to 13.  Design: two phases per iteration, each a
+// loop over 16 x 32 tiles that recomputes its halo in shared memory
+// instead of waiting for the neighbouring blocks:
 //
-// The grid barrier is an arrival counter and a generation word in device
-// memory (zeroed on the stream before each launch), in the pattern of
-// cooperative_groups' grid sync, so the library needs no relocatable
-// device code.
+// * phase A (warp -> G(W^2) -> direction): the block warps the right
+//   image by the state into shared memory over the tile +- 3 rows and
+//   columns, clamped to the image (the W halo of the direction tile),
+//   blurs W^2 there over the tile +- 1 (the clamped shifted reads; row
+//   pass, then column pass, each value rounded as the blur kernel rounds
+//   it), and runs the direction tile from those; writes `upd`;
+// * phase B (n smoothing passes -> average): the block loads `upd` over
+//   the tile +- (n + 1), clipped to the image, runs the passes in shared
+//   memory (ping-pong, a pass spoils one more line at each side of the
+//   window that is not the image's edge) and the 3-tap average of the
+//   tile; writes the state.
+//
+// That is 2 grid barriers per iteration (the last one of the level is
+// left out: 2 mi - 1 in all), and none before the first iteration, since
+// G(L^2) at a pixel is written and read by the same thread.  The grid is
+// one block per tile, up to two 512-thread blocks per SM (64 registers a
+// thread): on a level with more tiles than that, a block takes several
+// in turn, and the SM's second block hides some of a tile's latency.  Tiles at
+// the image's edge compute the edge pixels themselves, so every clamped
+// lookup lands in the tile's own shared window.  Phase B's window lives
+// in dynamic shared memory, 24 (16 + 2(n + 1)) (32 + 2(n + 1)) bytes
+// (phase A borrows it for the row pass of G(W^2)); ugsm_level_limits
+// says how large an n the card holds, and a larger one is refused.
+//
+// Every value is computed by the per-iteration kernels' own functions
+// (stencils.cuh) on the same inputs, compiled under the same
+// --fmad=false, so the result is bit-exact against the per-iteration
+// chain.  The port's warp is an exact gather, so unlike the TPU kernel
+// there is no warp window, no overflow flag and no recompute path.
+//
+// The grid barrier is one arrival word in device memory (zeroed on the
+// stream before each launch), in the pattern of cooperative_groups' grid
+// sync: one release atomic add per block, block 0 adding the complement
+// that flips the word's top bit when the last block arrives, and an
+// acquire poll of that bit; planes written during the launch are read
+// with ld.global.cg (L2, never the non-coherent L1).  The library needs
+// no relocatable device code.
+//
+// Block 0 also reports, in the words after the arrival word, the
+// barriers it passed and the SM clock cycles its thread (0, 0) spent in
+// each phase, summed over the iterations (stamps after the block's
+// __syncthreads at each phase boundary: a few instructions a phase),
+// which the host may read after the launch.
 #include <climits>
 
 #include "stencils.cuh"
@@ -41,27 +69,52 @@ namespace {
 
 using ugsm::kDirBX;
 using ugsm::kDirBY;
+using ugsm::kWCols;
+using ugsm::kWRows;
+using ugsm::WRow;
 
 constexpr int kThreads = kDirBX * kDirBY;  // one direction tile per block
 constexpr int kMaxIters = 256;
+constexpr int kMaxSmooth = 1024;  // far above what shared memory holds
+constexpr int kGRows = kDirBY + 2;  // Gc(W^2) over the tile +- 1
+constexpr int kGCols = kDirBX + 2;
+// Clock stamps of block 0, in the order of ops/cuda/level.py PHASES:
+// G(L^2); phase A's warp, Gc(W^2), direction and barrier; phase B's
+// window load, passes, average and barrier.
+enum Phase { kPrologue, kWarp, kGW2, kDirection, kBarrierA, kLoad, kPasses,
+             kAverage, kBarrierB, kPhases };
+constexpr int kBarWords = 2 + kPhases;  // arrivals, barriers, cycles
 
 struct LevelArgs {
   const float* left;   // (3, H, W), never written
   const float* right;  // (3, H, W), never written
   const float* disp;   // (3, H, W) input state, never written
   float* state;        // (3, H, W): state between iterations; the result
-  float* warped;       // (3, H, W) scratch planes from here on
-  float* bw2;
-  float* bl2;
-  float* upd;
-  float* ping;
-  float* pong;
-  unsigned int* bar;   // [arrivals, generation]
+  float* bl2;          // (3, H, W) scratch: G(L^2)
+  float* upd;          // (3, H, W) scratch: the direction update
+  unsigned int* bar;   // kBarWords: arrivals, barriers passed, cycles
   int H, W, mi, n_smooth, replace_first;
   ugsm::Taps5 gauss, avg;
   ugsm::DirConsts k;
   float thr[kMaxIters];
 };
+
+// Bytes of phase B's window: two buffers of 3 planes over the tile
+// +- (n + 1).
+size_t window_bytes(int n_smooth) {
+  const size_t h = (size_t)n_smooth + 1;
+  return 2 * 3 * (kDirBY + 2 * h) * (kDirBX + 2 * h) * sizeof(float);
+}
+
+// Block 0's thread (0, 0) adds the cycles since its previous stamp to
+// phase k; clk[kPhases] holds that stamp.
+__device__ __forceinline__ void stamp(long long* clk, Phase k) {
+  if (blockIdx.x == 0 && threadIdx.x == 0 && threadIdx.y == 0) {
+    const long long now = clock64();
+    clk[k] += now - clk[kPhases];
+    clk[kPhases] = now;
+  }
+}
 
 // Every block of the (co-resident) grid arrives before any leaves; the
 // writes of every block before the barrier are visible after it.
@@ -69,100 +122,214 @@ __device__ __forceinline__ void grid_sync(unsigned int* bar,
                                           unsigned int nblocks) {
   __syncthreads();
   if (threadIdx.x == 0 && threadIdx.y == 0) {
-    volatile unsigned int* gen = bar + 1;
-    const unsigned int g = *gen;  // read before arriving
-    __threadfence();
-    if (atomicAdd(bar, 1u) == nblocks - 1) {
-      atomicExch(bar, 0u);
-      __threadfence();
-      atomicAdd(bar + 1, 1u);
-    } else {
-      while (*gen == g) __nanosleep(32);
-    }
-    __threadfence();
+    // the arrivals of one barrier add up to 0x80000000: the top bit flips
+    // once, when the last block arrives
+    const unsigned int inc = blockIdx.x == 0 ? 0x80000000u - (nblocks - 1)
+                                             : 1u;
+    unsigned int old, now;
+    asm volatile("atom.release.gpu.add.u32 %0, [%1], %2;"
+                 : "=r"(old)
+                 : "l"(bar), "r"(inc)
+                 : "memory");
+    do {
+      asm volatile("ld.acquire.gpu.u32 %0, [%1];"
+                   : "=r"(now)
+                   : "l"(bar)
+                   : "memory");
+    } while (((old ^ now) & 0x80000000u) == 0);
+    if (blockIdx.x == 0) bar[1] += 1;
   }
   __syncthreads();
 }
 
+// W and Gc(W^2) of phase A for direction_tile_with, from the block's
+// shared tiles: w3 (3 x kWRows rows) and g3 (3 x kGRows rows).
+struct TileW {
+  WRow* w3;
+  float (*g3)[kGCols];
+  __device__ __forceinline__ WRow* stage(int c, int, int) const {
+    return w3 + c * kWRows;
+  }
+  __device__ __forceinline__ float gw2(int c, int, int, int dy,
+                                       int dx) const {
+    return g3[c * kGRows + threadIdx.y + 1 + dy][threadIdx.x + 1 + dx];
+  }
+};
+
+// Phase A of the tile at (r0, c0): warp -> Gc(W^2) -> direction update
+// from the state `src`, into a.upd.  `rows` (3 kWRows kGCols floats of
+// shared memory) holds Gc(W^2)'s row pass.
 template <bool BILINEAR>
-__global__ void __launch_bounds__(kThreads, 1)
-    level_kernel(const LevelArgs a) {
+__device__ __forceinline__ void phase_a(const LevelArgs& a, const float* src,
+                                        int m, WRow* w3,
+                                        float (*g3)[kGCols], float* rows,
+                                        long long* clk, int r0, int c0) {
+  using ugsm::clampi;
   using ugsm::LdL2;
   using ugsm::LdPlain;
-  const int H = a.H, W = a.W, HW = H * W;
-  const size_t plane = (size_t)HW;
-  const int first = blockIdx.x * kThreads + threadIdx.y * kDirBX + threadIdx.x;
-  const int stride = gridDim.x * kThreads;
-  const unsigned int nblocks = gridDim.x;
-  const int ntx = (W + kDirBX - 1) / kDirBX;
-  const int ntiles = ntx * ((H + kDirBY - 1) / kDirBY);
-  const ugsm::RowBlock whole = ugsm::whole_image(H);
+  const int H = a.H, W = a.W;
+  const size_t plane = (size_t)H * W;
+  const int tid = threadIdx.y * kDirBX + threadIdx.x;
+  // W over the tile +- 3, clamped: row i of w3 is image row
+  // clamp(r0 - 3 + i), column j image column clamp(c0 - 3 + j)
+  for (int i = tid; i < kWRows * kWCols; i += kThreads) {
+    const int rr = clampi(r0 - 3 + i / kWCols, 0, H - 1);
+    const int cc = clampi(c0 - 3 + i % kWCols, 0, W - 1);
+    const size_t p = (size_t)rr * W + cc;
+    ugsm::warp_px<BILINEAR>(a.right, &w3[0][0], 3, H, W, kWRows * kWCols, i,
+                            rr, cc, LdL2::ld(src + p),
+                            LdL2::ld(src + plane + p));
+  }
+  __syncthreads();
+  stamp(clk, kWarp);
+  // Gc(W^2) over the tile +- 1, clamped, from w3 (every clamped
+  // neighbour lies within the tile +- 3), in two passes that round as
+  // sep5_clamp_at does: the row pass of W^2 at the G columns, over w3's
+  // rows, into `rows`, then the column pass
+  for (int i = tid; i < 3 * kWRows * kGCols; i += kThreads) {
+    const int cr = i / kGCols, j = i - cr * kGCols;  // cr: channel, w3 row
+    const int cc = clampi(c0 - 1 + j, 0, W - 1);
+    float v[5];
+#pragma unroll
+    for (int d = 0; d < 5; ++d) {
+      const float x = w3[cr][clampi(cc + d - 2, 0, W - 1) - (c0 - 3)];
+      v[d] = x * x;
+    }
+    rows[i] = ugsm::pass5(a.gauss, v[0], v[1], v[2], v[3], v[4]);
+  }
+  __syncthreads();
+  for (int i = tid; i < 3 * kGRows * kGCols; i += kThreads) {
+    const int cg = i / kGCols, j = i - cg * kGCols;  // cg: channel, G row
+    const int c = cg / kGRows;
+    const int rr = clampi(r0 - 1 + (cg - c * kGRows), 0, H - 1);
+    float v[5];
+#pragma unroll
+    for (int d = 0; d < 5; ++d) {
+      const int wr = clampi(rr + d - 2, 0, H - 1) - (r0 - 3);  // w3 row
+      v[d] = rows[(c * kWRows + wr) * kGCols + j];
+    }
+    g3[cg][j] = ugsm::pass5(a.gauss, v[0], v[1], v[2], v[3], v[4]);
+  }
+  __syncthreads();
+  stamp(clk, kGW2);
+  // The coarsest level's first iteration replaces the confidence.  left
+  // is never written, and G(L^2) at a pixel was written by this thread:
+  // both may come through L1.
+  ugsm::direction_tile_with<LdL2, false, TileW, LdPlain>(
+      a.left, a.bl2, src, a.upd, ugsm::whole_image(H), W, r0, c0, a.thr[m],
+      a.replace_first && m == 0, a.gauss, a.k, TileW{w3, g3});
+  stamp(clk, kDirection);
+}
 
-  // The input state, and G(L^2), which holds for the whole level.
-  for (int p = first; p < HW; p += stride) {
-    const int r = p / W, x = p - r * W;
+// Phase B of the tile at (r0, c0): n smoothing passes over the tile
+// +- (n + 1), clipped to the image, in the shared `win`, then the 3-tap
+// average of the tile into a.state.
+__device__ __forceinline__ void phase_b(const LevelArgs& a, float* win,
+                                        long long* clk, int r0, int c0) {
+  using ugsm::LdL2;
+  using ugsm::LdPlain;
+  const int H = a.H, W = a.W, n = a.n_smooth, h = n + 1;
+  const size_t plane = (size_t)H * W;
+  const int tid = threadIdx.y * kDirBX + threadIdx.x;
+  const int ra = max(r0 - h, 0), rb = min(r0 + kDirBY + h, H);
+  const int ca = max(c0 - h, 0), cb = min(c0 + kDirBX + h, W);
+  const int rw = cb - ca, wp = (rb - ra) * rw;
+  for (int i = tid; i < wp; i += kThreads) {
+    const size_t g = (size_t)(ra + i / rw) * W + ca + i % rw;
+    for (int c = 0; c < 3; ++c) win[c * wp + i] = LdL2::ld(a.upd + c * plane + g);
+  }
+  __syncthreads();
+  stamp(clk, kLoad);
+  for (int s = 1; s <= n; ++s) {
+    // the lines still exact after s passes
+    const int lo_r = ra > 0 ? ra + s : 0, hi_r = rb < H ? rb - s : H;
+    const int lo_c = ca > 0 ? ca + s : 0, hi_c = cb < W ? cb - s : W;
+    const int cw = hi_c - lo_c;
+    const float* in = win + ((s - 1) & 1) * 3 * wp;
+    float* out = win + (s & 1) * 3 * wp;
+    for (int i = tid; i < (hi_r - lo_r) * cw; i += kThreads) {
+      ugsm::smooth_px_window(in, out, wp, rw, ra, ca, H, W, lo_r + i / cw,
+                             lo_c + i % cw);
+    }
+    __syncthreads();
+  }
+  stamp(clk, kPasses);
+  const float* fin = win + (n & 1) * 3 * wp;
+  const int r = r0 + threadIdx.y, x = c0 + threadIdx.x;
+  if (r < H && x < W) {
     for (int c = 0; c < 3; ++c) {
-      a.state[c * plane + p] = a.disp[c * plane + p];
-      a.bl2[c * plane + p] = ugsm::sep5_clamp_at<LdPlain, true>(
-          a.left + c * plane, r, x, H, W, a.gauss);
+      a.state[c * plane + (size_t)r * W + x] = ugsm::sep5_clamp_at<false>(
+          ugsm::PlaneAt<LdPlain, int>{fin + c * wp, rw, ra, ca}, r, x, H, W,
+          a.avg);
     }
   }
-  grid_sync(a.bar, nblocks);
-
-  for (int m = 0; m < a.mi; ++m) {
-    for (int p = first; p < HW; p += stride) {
-      const int r = p / W, x = p - r * W;
-      ugsm::warp_px<BILINEAR>(a.right, a.warped, 3, H, W, plane, p, r, x,
-                              LdL2::ld(a.state + p),
-                              LdL2::ld(a.state + plane + p));
-    }
-    grid_sync(a.bar, nblocks);
-
-    for (int p = first; p < HW; p += stride) {
-      const int r = p / W, x = p - r * W;
-      for (int c = 0; c < 3; ++c) {
-        a.bw2[c * plane + p] = ugsm::sep5_clamp_at<LdL2, true>(
-            a.warped + c * plane, r, x, H, W, a.gauss);
-      }
-    }
-    grid_sync(a.bar, nblocks);
-
-    // The coarsest level's first iteration replaces the confidence.
-    const bool replace = a.replace_first && m == 0;
-    for (int t = blockIdx.x; t < ntiles; t += gridDim.x) {
-      const int tr = t / ntx;
-      ugsm::direction_tile<LdL2>(a.left, a.warped, a.bl2, a.bw2, a.state,
-                                 a.upd, whole, W, tr * kDirBY,
-                                 (t - tr * ntx) * kDirBX, a.thr[m], replace,
-                                 a.gauss, a.k);
-    }
-    grid_sync(a.bar, nblocks);
-
-    const float* src = a.upd;
-    for (int i = 0; i < a.n_smooth; ++i) {
-      float* dst = (i & 1) ? a.pong : a.ping;
-      for (int p = first; p < HW; p += stride) {
-        const int r = p / W;
-        ugsm::smooth_px<LdL2>(src, dst, whole, W, r, p - r * W);
-      }
-      grid_sync(a.bar, nblocks);
-      src = dst;
-    }
-
-    for (int p = first; p < HW; p += stride) {
-      const int r = p / W, x = p - r * W;
-      for (int c = 0; c < 3; ++c) {
-        a.state[c * plane + p] = ugsm::sep5_clamp_at<LdL2, false>(
-            src + c * plane, r, x, H, W, a.avg);
-      }
-    }
-    grid_sync(a.bar, nblocks);
-  }
+  __syncthreads();  // the window is free for the block's next tile
+  stamp(clk, kAverage);
 }
 
 template <bool BILINEAR>
-cudaError_t max_coresident(int* out) {
-  int dev = 0, coop = 0, sms = 0, per_sm = 0;
+__global__ void __launch_bounds__(kThreads, 2)
+    level_kernel(const LevelArgs a) {
+  __shared__ float w3[3 * kWRows][kWCols];
+  __shared__ float g3[3 * kGRows][kGCols];
+  extern __shared__ float win[];  // phase B's window; phase A's row pass
+  __shared__ long long clk[kPhases + 1];  // block 0's stamps
+  const int H = a.H, W = a.W;
+  const size_t plane = (size_t)H * W;
+  const unsigned int nblocks = gridDim.x;
+  const int ntx = (W + kDirBX - 1) / kDirBX;
+  const int ntiles = ntx * ((H + kDirBY - 1) / kDirBY);
+
+  if (blockIdx.x == 0 && threadIdx.x == 0 && threadIdx.y == 0) {
+    for (int k = 0; k < kPhases; ++k) clk[k] = 0;
+    clk[kPhases] = clock64();
+  }
+  if (a.mi == 0) {
+    for (size_t p = blockIdx.x * kThreads + threadIdx.y * kDirBX + threadIdx.x;
+         p < 3 * plane; p += (size_t)gridDim.x * kThreads)
+      a.state[p] = a.disp[p];
+    return;
+  }
+  // G(L^2), which holds for the whole level, at each pixel by the thread
+  // that reads it in phase A (the same tiles, in the same order)
+  for (int t = blockIdx.x; t < ntiles; t += gridDim.x) {
+    const int r = (t / ntx) * kDirBY + threadIdx.y;
+    const int x = (t % ntx) * kDirBX + threadIdx.x;
+    if (r >= H || x >= W) continue;
+    for (int c = 0; c < 3; ++c) {
+      a.bl2[c * plane + (size_t)r * W + x] = ugsm::sep5_clamp_at<true>(
+          ugsm::PlaneAt<ugsm::LdPlain>{a.left + c * plane, W, 0, 0}, r, x, H,
+          W, a.gauss);
+    }
+  }
+  stamp(clk, kPrologue);
+
+  for (int m = 0; m < a.mi; ++m) {
+    const float* src = m == 0 ? a.disp : a.state;
+    for (int t = blockIdx.x; t < ntiles; t += gridDim.x) {
+      phase_a<BILINEAR>(a, src, m, w3, g3, win, clk, (t / ntx) * kDirBY,
+                        (t % ntx) * kDirBX);
+    }
+    grid_sync(a.bar, nblocks);
+    stamp(clk, kBarrierA);
+    for (int t = blockIdx.x; t < ntiles; t += gridDim.x) {
+      phase_b(a, win, clk, (t / ntx) * kDirBY, (t % ntx) * kDirBX);
+    }
+    if (m + 1 < a.mi) grid_sync(a.bar, nblocks);
+    stamp(clk, kBarrierB);
+  }
+  if (blockIdx.x == 0 && threadIdx.x == 0 && threadIdx.y == 0) {
+    for (int k = 0; k < kPhases; ++k) a.bar[2 + k] = (unsigned int)clk[k];
+  }
+}
+
+// The largest co-resident grid for n_smooth (0 if the window does not fit
+// beside the static shared memory), after raising the kernel's dynamic
+// shared memory limit to the window's size.
+template <bool BILINEAR>
+cudaError_t max_coresident(int n_smooth, int* out) {
+  int dev = 0, coop = 0, sms = 0, optin = 0, per_sm = 0;
+  *out = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return e;
   e = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
@@ -170,26 +337,67 @@ cudaError_t max_coresident(int* out) {
   if (!coop) return cudaErrorNotSupported;
   e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e != cudaSuccess) return e;
+  e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                             dev);
+  if (e != cudaSuccess) return e;
+  cudaFuncAttributes attr;
+  e = cudaFuncGetAttributes(&attr, level_kernel<BILINEAR>);
+  if (e != cudaSuccess) return e;
+  const size_t dyn = window_bytes(n_smooth);
+  if (attr.sharedSizeBytes + dyn > (size_t)optin) return cudaSuccess;
+  e = cudaFuncSetAttribute(level_kernel<BILINEAR>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)dyn);
+  if (e != cudaSuccess) return e;
   e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, level_kernel<BILINEAR>, kThreads, 0);
+      &per_sm, level_kernel<BILINEAR>, kThreads, dyn);
   if (e != cudaSuccess) return e;
   *out = per_sm * sms;
   return cudaSuccess;
 }
 
-}  // namespace
-
-// The largest grid of level-kernel blocks the current device holds at
-// once (0 if the kernel does not fit on an SM at all).
-UGSM_API int ugsm_level_max_grid(int bilinear, int* out) {
-  return (int)(bilinear ? max_coresident<true>(out)
-                        : max_coresident<false>(out));
+// The largest n_smooth whose window fits beside the static shared memory.
+template <bool BILINEAR>
+cudaError_t max_smooth_passes(int* out) {
+  int dev = 0, optin = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                             dev);
+  if (e != cudaSuccess) return e;
+  cudaFuncAttributes attr;
+  e = cudaFuncGetAttributes(&attr, level_kernel<BILINEAR>);
+  if (e != cudaSuccess) return e;
+  int n = -1;
+  while (n < kMaxSmooth && attr.sharedSizeBytes + window_bytes(n + 1) <=
+                               (size_t)optin)
+    ++n;
+  *out = n;
+  return cudaSuccess;
 }
 
-// left/right/disp/out: (3, H, W); scratch: 18 planes of H * W floats;
-// bar: 2 words of device memory; thr: mi host floats.  grid_req = 0
-// sizes the grid from the level; a larger request than the device holds
-// at once is refused with cudaErrorCooperativeLaunchTooLarge.
+}  // namespace
+
+// The largest n_smooth whose window the current device holds (-1 if
+// none), and for n_smooth passes (0 <= n_smooth <= that) the largest grid
+// of level-kernel blocks it holds at once.
+UGSM_API int ugsm_level_limits(int bilinear, int n_smooth, int* max_smooth,
+                               int* max_grid) {
+  if (n_smooth < 0 || n_smooth > kMaxSmooth)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t e = bilinear ? max_smooth_passes<true>(max_smooth)
+                           : max_smooth_passes<false>(max_smooth);
+  if (e != cudaSuccess) return (int)e;
+  return (int)(bilinear ? max_coresident<true>(n_smooth, max_grid)
+                        : max_coresident<false>(n_smooth, max_grid));
+}
+
+// left/right/disp/out: (3, H, W); scratch: 6 planes of H * W floats;
+// bar: kBarWords (11) words of device memory: after the launch the second
+// holds the barriers passed and the rest block 0's cycles per phase; thr: mi host floats.  grid_req = 0 sizes the grid from the
+// level (one block per tile); a larger request than the device holds at
+// once is refused with cudaErrorCooperativeLaunchTooLarge, and so is an
+// n_smooth whose window does not fit.
 UGSM_API int ugsm_level_resident(
     const float* left, const float* right, const float* disp, float* out,
     float* scratch, unsigned int* bar, const float* thr, int mi, int H,
@@ -198,32 +406,26 @@ UGSM_API int ugsm_level_resident(
     float aff_scale, float aff_bias, float w_new, float w_old, int grid_req,
     void* stream) {
   if (H < 1 || W < 1 || mi < 0 || mi > kMaxIters || n_smooth < 0 ||
-      (long long)H * W > INT_MAX / 4)
+      n_smooth > kMaxSmooth || (long long)H * W > INT_MAX / 4)
     return (int)cudaErrorInvalidValue;
   int max_grid = 0;
-  cudaError_t e = bilinear ? max_coresident<true>(&max_grid)
-                           : max_coresident<false>(&max_grid);
+  cudaError_t e = bilinear ? max_coresident<true>(n_smooth, &max_grid)
+                           : max_coresident<false>(n_smooth, &max_grid);
   if (e != cudaSuccess) return (int)e;
-  const int HW = H * W;
   const int ntiles = ((W + kDirBX - 1) / kDirBX) * ((H + kDirBY - 1) / kDirBY);
-  const int pix_blocks = (HW + kThreads - 1) / kThreads;
-  const int want = ntiles > pix_blocks ? ntiles : pix_blocks;
-  const int grid = grid_req > 0 ? grid_req : (want < max_grid ? want : max_grid);
+  const int grid = grid_req > 0 ? grid_req
+                                : (ntiles < max_grid ? ntiles : max_grid);
   if (grid < 1 || grid > max_grid)
     return (int)cudaErrorCooperativeLaunchTooLarge;
 
   LevelArgs a;
-  const size_t plane = (size_t)HW;
+  const size_t plane = (size_t)H * W;
   a.left = left;
   a.right = right;
   a.disp = disp;
   a.state = out;
-  a.warped = scratch;
-  a.bw2 = scratch + 3 * plane;
-  a.bl2 = scratch + 6 * plane;
-  a.upd = scratch + 9 * plane;
-  a.ping = scratch + 12 * plane;
-  a.pong = scratch + 15 * plane;
+  a.bl2 = scratch;
+  a.upd = scratch + 3 * plane;
   a.bar = bar;
   a.H = H;
   a.W = W;
@@ -236,13 +438,13 @@ UGSM_API int ugsm_level_resident(
   for (int m = 0; m < mi; ++m) a.thr[m] = thr[m];
 
   const cudaStream_t s = (cudaStream_t)stream;
-  e = cudaMemsetAsync(bar, 0, 2 * sizeof(unsigned int), s);
+  e = cudaMemsetAsync(bar, 0, kBarWords * sizeof(unsigned int), s);
   if (e != cudaSuccess) return (int)e;
   void* args[] = {&a};
   const void* fn = bilinear ? (const void*)level_kernel<true>
                             : (const void*)level_kernel<false>;
   e = cudaLaunchCooperativeKernel(fn, dim3(grid), dim3(kDirBX, kDirBY), args,
-                                  0, s);
+                                  window_bytes(n_smooth), s);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }

@@ -10,30 +10,80 @@
 //   float64 (ops/resample.py bilinear_taps); rows interpolate before
 //   columns, as the TPU kernel's two-hot row matrix does.
 //
-// Bound: device memory; it is a pure gather.  The TPU version turns the
+// Bound: device memory; it is a pure gather (each output written once,
+// each source texel the taps reach read once).  The TPU version turns the
 // selection into one-hot matmuls because its vector unit cannot gather;
-// here one thread reads one source float.  Design: a block covers 256
-// consecutive output columns of one row and one plane, so the writes are
-// coalesced and the reads of one warp fall into a span of about
-// 32 * scale floats of one source row.  iy[r] is the same for the block;
-// ix is read through the read-only cache.
+// here threads read their source floats directly.
+//
+// Nearest: with one output per thread (a block per 256-column run of one
+// row and one plane, about 194 K blocks at the sqrt(2) subsample of six
+// 16 MP planes) each thread makes two index loads, one gather and one
+// store, reuses no index and has one load in flight, and the kernel loses
+// to one F.interpolate call on an H100.  So each thread owns kCols
+// columns 32 apart (each store of a warp is one coalesced run of 32
+// floats, whatever the row's alignment: W2 is odd on most levels, and no
+// vector store is issued) and a strip of kRows rows; it loads its ix once
+// and the strip's iy once, keeps them in registers across the rows and
+// every plane, and issues the kRows * kCols gathers of a plane before
+// their stores.  The grid is a block of kWarps warps per 32 * kCols
+// columns and kWarps * kRows rows, about two waves of the SMs at 16 MP.
+//
+// Bilinear: a block covers 256 consecutive output columns of one row and
+// one plane, so the writes are coalesced and the reads of one warp fall
+// into a span of about 32 * scale floats of one source row; wy/iy are the
+// same for the block, ix/wx read through the read-only cache.
 #include "common.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kCols = 4;   // nearest: columns per thread, 32 apart
+constexpr int kRows = 4;   // nearest: rows per warp strip
+constexpr int kWarps = kThreads / 32;
 
 __global__ void __launch_bounds__(kThreads)
     resample_kernel(const float* __restrict__ img, float* __restrict__ out,
                     const int* __restrict__ iy, const int* __restrict__ ix,
-                    int H, int W, int H2, int W2, float scale, int apply) {
-  const int x = blockIdx.x * kThreads + threadIdx.x;
-  if (x >= W2) return;
-  const int c = blockIdx.z;
-  const int sx = __ldg(ix + x);
-  for (int r = blockIdx.y; r < H2; r += gridDim.y) {
-    const float v = img[((size_t)c * H + __ldg(iy + r)) * W + sx];
-    out[((size_t)c * H2 + r) * W2 + x] = apply ? scale * v : v;
+                    int C, int H, int W, int H2, int W2, float scale,
+                    int apply) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int x0 = blockIdx.x * (32 * kCols) + lane;
+  int sx[kCols];
+#pragma unroll
+  for (int k = 0; k < kCols; ++k) {
+    const int x = x0 + 32 * k;
+    sx[k] = x < W2 ? __ldg(ix + x) : 0;
+  }
+  for (int r0 = (blockIdx.y * kWarps + warp) * kRows; r0 < H2;
+       r0 += gridDim.y * kWarps * kRows) {
+    int sy[kRows];
+#pragma unroll
+    for (int i = 0; i < kRows; ++i) {
+      sy[i] = __ldg(iy + (r0 + i < H2 ? r0 + i : H2 - 1));
+    }
+    for (int c = 0; c < C; ++c) {
+      const float* __restrict__ src = img + (size_t)c * H * W;
+      float* __restrict__ dst = out + (size_t)c * H2 * W2;
+      float v[kRows][kCols];
+#pragma unroll
+      for (int i = 0; i < kRows; ++i) {
+#pragma unroll
+        for (int k = 0; k < kCols; ++k) {
+          v[i][k] = __ldg(src + (size_t)sy[i] * W + sx[k]);
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < kRows; ++i) {
+        if (r0 + i >= H2) break;
+#pragma unroll
+        for (int k = 0; k < kCols; ++k) {
+          const int x = x0 + 32 * k;
+          if (x < W2) {
+            dst[(size_t)(r0 + i) * W2 + x] = apply ? scale * v[i][k] : v[i][k];
+          }
+        }
+      }
+    }
   }
 }
 
@@ -72,9 +122,11 @@ UGSM_API int ugsm_resample_nearest(const float* img, float* out,
                                    int apply, void* stream) {
   if (C < 1 || C > 65535 || H < 1 || W < 1 || H2 < 1 || W2 < 1)
     return (int)cudaErrorInvalidValue;
-  const dim3 grid((W2 + kThreads - 1) / kThreads, H2 < 65535 ? H2 : 65535, C);
+  const int strips = (H2 + kWarps * kRows - 1) / (kWarps * kRows);
+  const dim3 grid((W2 + 32 * kCols - 1) / (32 * kCols),
+                  strips < 65535 ? strips : 65535);
   resample_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      img, out, iy, ix, H, W, H2, W2, scale, apply);
+      img, out, iy, ix, C, H, W, H2, W2, scale, apply);
   return (int)cudaGetLastError();
 }
 

@@ -38,13 +38,13 @@ from ug_stereomatcher_tpu_torch.ops.cuda.warp import warp
 
 LevelBody = Callable[[torch.Tensor, int, float], torch.Tensor]
 
-# Levels of at most this many pixels run level-resident: levels 8-13 of a
-# 16 MP frame (level 8 is 202 x 306), the set the JAX package's VMEM gate
-# admits there.  On the H100 this gate gave the lowest warm 16 MP latency
-# of five gates from 0 to 512 Ki pixels, timed in one call (PERF.md): admitting
-# levels 6-7 as well costs more device time than the launches it saves,
-# because the host already runs ahead of the card there (PERF.md).
-LEVEL_RESIDENT_MAX_PIXELS = 64 * 1024
+# Levels of at most this many pixels run level-resident: levels 6-13 of a
+# 16 MP frame (level 6 is 407 x 615).  On an H100 the level kernel takes
+# about 1.1 ms at level 7 and 2.0 ms at level 6 against about 5 ms per
+# iteration, and in one call this gate timed the warm 16 MP match about
+# 8 ms faster than 64 Ki and within the spread of 512 Ki and 1 Mi, which
+# add levels 5 and 4 (PERF.md).
+LEVEL_RESIDENT_MAX_PIXELS = 256 * 1024
 
 
 def _level_blurred_l2(left: torch.Tensor) -> torch.Tensor:

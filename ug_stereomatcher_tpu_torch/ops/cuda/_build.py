@@ -65,7 +65,8 @@ SIGNATURES = {
 }
 # Host queries (no stream, no launch).
 QUERIES = {
-    "ugsm_level_max_grid": [_I, _PI],   # (bilinear, out: max grid)
+    # (bilinear, n_smooth, out: max n_smooth, out: max grid for n_smooth)
+    "ugsm_level_limits": [_I, _I, _PI, _PI],
 }
 
 LAUNCHES: Dict[str, int] = collections.Counter()

@@ -4,11 +4,19 @@ Replaces ``level_resident_match`` (ug_stereomatcher_tpu/ops/pallas/
 level.py:307, ``pallas_call`` at :351), nearest and bilinear.  The TPU
 kernel keeps every plane of a coarse level in VMEM so that the level's
 ``mi`` iterations cost one dispatch instead of several per iteration.
-On the card the same job is done by one cooperative launch whose blocks
-meet at grid barriers between the dependent phases of each iteration,
-with every plane in device memory (a coarse level's working set fits the
-50 MB L2).  The per-pixel math is the per-iteration kernels' own, so the
-result is bit-exact against the plain per-iteration loop.
+On the card the same job is done by one cooperative launch with two
+phases per iteration, each a loop over 16 x 32 tiles that recomputes its
+halo in shared memory: (A) warp, G(W^2) and the direction update over the
+tile +- 3, (B) the ``n_smooth`` passes and the average over the tile
++- (n_smooth + 1).  The blocks meet at a grid barrier after each phase
+(2 per iteration; ``profile_level`` reads the count and block 0's
+cycles per phase back from the card), with the planes between
+phases in device memory (a coarse level's working set fits the 50 MB
+L2).  Phase B's window is dynamic shared memory that grows with
+``n_smooth``; an ``n_smooth`` above what the card holds
+(``max_smooth_passes``, 33 on an H100) raises.  The per-pixel math is
+the per-iteration kernels' own, so the result is bit-exact against the
+plain per-iteration loop.
 
 The port's warp is an exact gather, so this kernel has no warp window,
 no overflow flag and no recompute path: it computes what ``match_level``
@@ -45,7 +53,13 @@ from ug_stereomatcher_tpu_torch.ops.cuda.smooth import fused_smooth_average_plai
 from ug_stereomatcher_tpu_torch.ops.cuda.warp import warp_plain
 
 MAX_ITERS = 256        # the threshold table travels in the launch arguments
-SCRATCH_PLANES = 18    # warped, G(W^2), G(L^2), update, two smoothing planes
+SCRATCH_PLANES = 6     # G(L^2) and the direction update
+# The phases block 0 of the kernel times (level.cu Phase): G(L^2); phase
+# A's warp, Gc(W^2), direction update and grid barrier; phase B's window
+# load, smoothing passes, average and grid barrier.
+PHASES = ("prologue", "a_warp", "a_gw2", "a_direction", "a_barrier",
+          "b_load", "b_passes", "b_average", "b_barrier")
+BAR_WORDS = 2 + len(PHASES)  # arrivals, barriers passed, cycles per phase
 
 
 def level_resident_match_plain(left: torch.Tensor, right: torch.Tensor,
@@ -68,14 +82,68 @@ def level_resident_match_plain(left: torch.Tensor, right: torch.Tensor,
     return state
 
 
-def max_coresident_blocks(method: str = "nearest") -> int:
+def _limits(method: str, n_smooth: int):
+    max_smooth, max_grid = ctypes.c_int(0), ctypes.c_int(0)
+    check("ugsm_level_limits",
+          library().ugsm_level_limits(int(method == "bilinear"),
+                                      int(n_smooth), ctypes.byref(max_smooth),
+                                      ctypes.byref(max_grid)))
+    return max_smooth.value, max_grid.value
+
+
+def max_smooth_passes(method: str = "nearest") -> int:
+    """The largest ``n_smooth`` whose phase-B window the current CUDA
+    device holds in shared memory."""
+    return _limits(method, 0)[0]
+
+
+def max_coresident_blocks(method: str = "nearest", n_smooth: int = 5) -> int:
     """The largest grid of level-kernel blocks the current CUDA device
-    holds at once."""
-    out = ctypes.c_int(0)
-    check("ugsm_level_max_grid",
-          library().ugsm_level_max_grid(int(method == "bilinear"),
-                                        ctypes.byref(out)))
-    return out.value
+    holds at once for ``n_smooth`` passes."""
+    return _limits(method, n_smooth)[1]
+
+
+def _check_args(left, right, disp, thresholds, n_smooth, method):
+    if method not in INTERP_METHODS:
+        raise unsupported_interp(method)
+    shape = disp.shape
+    if len(shape) != 3 or shape[0] != 3:
+        raise ValueError(f"expected (3, H, W) state, got {tuple(shape)}")
+    for name, t in (("left", left), ("right", right)):
+        if t.shape != shape:
+            raise ValueError(f"{name} is {tuple(t.shape)}, expected "
+                             f"{tuple(shape)}")
+    if n_smooth < 0:
+        raise ValueError(f"n_smooth must be >= 0, got {n_smooth}")
+    thresholds = [float(t) for t in thresholds]
+    if len(thresholds) > MAX_ITERS:
+        raise ValueError(f"at most {MAX_ITERS} iterations, got "
+                         f"{len(thresholds)}")
+    return thresholds, check_planes("level_resident_match", left, right, disp)
+
+
+def _launch(left, right, disp, thresholds, n_smooth, replace_first, consts,
+            method, grid_blocks):
+    """One launch of the kernel; returns the state and the BAR_WORDS
+    barrier words (float32 storage holding uint32 words)."""
+    most = max_smooth_passes(method)
+    if n_smooth > most:
+        raise ValueError(f"n_smooth={n_smooth}: the level kernel's window "
+                         f"holds at most {most} smoothing passes on this "
+                         f"device")
+    _, H, W = disp.shape
+    out = torch.empty_like(disp)
+    scratch = torch.empty(SCRATCH_PLANES * H * W + BAR_WORDS,
+                          dtype=torch.float32, device=disp.device)
+    barrier = scratch[SCRATCH_PLANES * H * W:]
+    thr = (ctypes.c_float * max(1, len(thresholds)))(*thresholds)
+    g = gaussian_kernel()
+    launch("ugsm_level_resident", "level", ptr(left), ptr(right), ptr(disp),
+           ptr(out), ptr(scratch), ptr(barrier), thr, len(thresholds), H, W,
+           int(n_smooth), int(bool(replace_first)), int(method == "bilinear"),
+           float(g[0]), float(g[1]), float(g[2]), float(average_kernel()[1]),
+           *(float(c) for c in consts), int(grid_blocks))
+    return out, barrier
 
 
 def level_resident_match(left: torch.Tensor, right: torch.Tensor,
@@ -94,36 +162,33 @@ def level_resident_match(left: torch.Tensor, right: torch.Tensor,
     ``grid_blocks`` > 0 asks for that many blocks instead of sizing the
     grid from the level: a test-only override, to show that a grid the
     card cannot hold at once is refused."""
-    if method not in INTERP_METHODS:
-        raise unsupported_interp(method)
-    shape = disp.shape
-    if len(shape) != 3 or shape[0] != 3:
-        raise ValueError(f"expected (3, H, W) state, got {tuple(shape)}")
-    for name, t in (("left", left), ("right", right)):
-        if t.shape != shape:
-            raise ValueError(f"{name} is {tuple(t.shape)}, expected "
-                             f"{tuple(shape)}")
-    if n_smooth < 0:
-        raise ValueError(f"n_smooth must be >= 0, got {n_smooth}")
-    thresholds = [float(t) for t in thresholds]
-    if len(thresholds) > MAX_ITERS:
-        raise ValueError(f"at most {MAX_ITERS} iterations, got "
-                         f"{len(thresholds)}")
-    dev = check_planes("level_resident_match", left, right, disp)
+    thresholds, dev = _check_args(left, right, disp, thresholds, n_smooth,
+                                  method)
     if dev.type == "cpu":
         return level_resident_match_plain(left, right, disp, thresholds,
                                           n_smooth, replace_first, consts,
                                           method)
-    _, H, W = shape
-    out = torch.empty_like(disp)
-    scratch = torch.empty(SCRATCH_PLANES * H * W + 2, dtype=torch.float32,
-                          device=dev)
-    barrier = scratch[SCRATCH_PLANES * H * W:]
-    thr = (ctypes.c_float * max(1, len(thresholds)))(*thresholds)
-    g = gaussian_kernel()
-    launch("ugsm_level_resident", "level", ptr(left), ptr(right), ptr(disp),
-           ptr(out), ptr(scratch), ptr(barrier), thr, len(thresholds), H, W,
-           int(n_smooth), int(bool(replace_first)), int(method == "bilinear"),
-           float(g[0]), float(g[1]), float(g[2]), float(average_kernel()[1]),
-           *(float(c) for c in consts), int(grid_blocks))
-    return out
+    return _launch(left, right, disp, thresholds, n_smooth, replace_first,
+                   consts, method, grid_blocks)[0]
+
+
+def profile_level(left: torch.Tensor, right: torch.Tensor,
+                  disp: torch.Tensor, thresholds: Sequence[float],
+                  n_smooth: int, replace_first: bool,
+                  consts: Sequence[float] = DEFAULT_CONSTS,
+                  method: str = "nearest") -> dict:
+    """Launch the kernel on CUDA tensors as level_resident_match does,
+    synchronise, and return what its block 0 counted on the card: the
+    grid barriers it passed (``"grid_barriers"``) and the SM clock cycles
+    of its thread (0, 0) in each of PHASES, summed over the iterations
+    (``"cycles"``)."""
+    thresholds, dev = _check_args(left, right, disp, thresholds, n_smooth,
+                                  method)
+    if dev.type != "cuda":
+        raise ValueError("profile_level: the kernel runs on CUDA tensors "
+                         "only")
+    _, words = _launch(left, right, disp, thresholds, n_smooth,
+                       replace_first, consts, method, 0)
+    words = words.view(torch.int32).tolist()
+    return {"grid_barriers": words[1],
+            "cycles": dict(zip(PHASES, words[2:]))}

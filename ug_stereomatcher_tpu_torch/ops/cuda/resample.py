@@ -6,10 +6,12 @@ Replaces ``resample_static`` (ug_stereomatcher_tpu/ops/pallas/resample.py,
 ``method="nearest"`` and ``"bilinear"`` (the ``wy``/``wx`` form with
 ``_bilinear_taps`` :261).  Bound on the card by device memory: a gather.
 The TPU kernel selects rows and columns with one-hot (two-hot for
-bilinear) matmuls because its vector unit cannot gather; the kernel here
-reads its source floats directly, one block per run of 256 output columns
-of a row, so the writes are coalesced.  Bit-exact against the plain
-version.
+bilinear) matmuls because its vector unit cannot gather; the kernels here
+read their source floats directly with coalesced writes: the nearest
+kernel gives each thread 4 columns (32 apart) of a 4-row strip across
+every plane, its indices held in registers; the bilinear kernel one
+output per thread, a block per run of 256 columns of a row.  Bit-exact
+against the plain version.
 
 The taps are computed on the host in float64 with numpy, as the JAX
 package's ``resample_tex`` computes them: nearest indices, or bilinear
