@@ -9,16 +9,19 @@ Phases (any failure exits non-zero before the last line is printed):
    the nvcc build of the kernel library from the sources in csrc/;
 2. kernels: each kernel against its plain PyTorch version on the card,
    with the median time of each beside the other (CUDA events):
-   blur, resample (nearest and bilinear), warp (nearest and bilinear),
-   direction and smooth at the 16 MP level-0 shape and at pyramid level 8
-   (202 x 306), the row-sharded forms of warp (both methods), direction
-   and smooth on the middle (timed) and bottom shard of four at those
-   levels (816 and 51 rows), and the level-resident kernel at levels 8
-   and 13 in both methods with replace_first on and off, with the grid
-   barriers each timed launch passed and its time by phase (counted by
-   block 0 on the card; more than 3 barriers per iteration fails); each
-   kernel's least possible time on the card (bound) and, where one
-   PyTorch call computes the same function, that call's time;
+   blur, resample (nearest and bilinear), warp (nearest and bilinear, on
+   a random field and on a smooth one like the matcher's: the scene's
+   3 px shift plus a sinusoid of a few pixels, from --seed), direction
+   and smooth at the 16 MP level-0 shape and at pyramid level 8
+   (202 x 306), the row-sharded forms of warp (both methods and
+   fields), direction and smooth on the middle (timed) and bottom shard
+   of four at those levels (816 and 51 rows), and the level-resident
+   kernel at levels 8 and 13 in both methods with replace_first on and
+   off, with the grid barriers each timed launch passed and its time by
+   phase (counted by block 0 on the card; more than 3 barriers per
+   iteration fails); each kernel's least possible time on the card
+   (bound) and, where one PyTorch call computes the same function, that
+   call's time;
 3. slices: StereoEngine.match on the 1/f octave scene with a known 3 px
    shift at 3264 x 4928, (a) nearest with the level-resident gate, (b)
    nearest with every level per iteration, (c) bilinear; then
@@ -43,7 +46,7 @@ copies and the launches of four: they show that the sharded path is
 right and what it costs, not how it scales.
 
 It imports torch, numpy and the port, never jax.  Usage:
-    python3 chip_smoke.py [--out FILE.json]
+    python3 chip_smoke.py [--out FILE.json] [--seed N]
 
 With ``--ab NAME=PATH`` given twice or more, it runs none of the phases
 above and compares source trees instead (for example a parent commit
@@ -51,13 +54,16 @@ unpacked by ``git archive`` against this checkout): each round runs
 every tree once, in its own process that imports the port from that
 tree and builds its kernels there, in an order reversed every other
 round (parent, change, change, parent, ...).  A process times
-StereoEngine.match nearest on the bench scene, warm (host clock around
-a synchronised call, median of ``--matches`` after one warm-up), the
-whole-image blur, warp, direction and smooth (n = 10) kernels at 16 MP,
-the level-resident kernel at levels 8 and 13 (nearest, replace_first
-off) and the nearest and bilinear resample at the sqrt(2) subsample of
-six stacked 16 MP planes, each with cuda_ms.  It prints a JSON line per
-process, the nvidia-smi line and the medians per tree:
+StereoEngine.match nearest and bilinear on the bench scene, warm (host
+clock around a synchronised call, median of ``--matches`` after one
+warm-up), each with the device's busy share of one profiled match; the
+whole-image blur, warp (nearest and bilinear, on the random and the
+smooth field), direction and smooth (n = 10) kernels at 16 MP and the
+row-sharded direction on the middle shard of four; the level-resident
+kernel at levels 8 and 13 (nearest, replace_first off) and the nearest
+and bilinear resample at the sqrt(2) subsample of six stacked 16 MP
+planes, each with cuda_ms.  It prints a JSON line per process, the
+nvidia-smi line and per tree the median, least and greatest of each:
     python3 chip_smoke.py --ab parent=_smoke_checkout/parent --ab change=. \\
         [--rounds 2] [--matches 7] [--out FILE.json]
 
@@ -239,6 +245,26 @@ def grid_sample_warp(img, dh, dv, mode, row0: int = 0):
                                  align_corners=False)
 
 
+def smooth_field(dev, h: int, w: int, row0: int = 0, image_h=None):
+    """A field like the matcher's on the bench scene: its 3 px shift plus
+    a low-frequency sinusoid of a few pixels in dh (amplitude 2-4 px) and
+    dv (1-2 px), phases and amplitudes from the seed.  (dh, dv) of rows
+    row0 .. row0 + h of an image_h-row image (default h)."""
+    from ug_stereomatcher_tpu_torch import scene
+
+    rng = np.random.RandomState(SEED)
+    a_h, a_v = rng.uniform(2.0, 4.0), rng.uniform(1.0, 2.0)
+    p_h, p_v = rng.uniform(0.0, 2.0 * np.pi, 2)
+    image_h = image_h or h
+    ys = torch.arange(row0, row0 + h, device=dev,
+                      dtype=torch.float32)[:, None] / image_h
+    xs = torch.arange(w, device=dev, dtype=torch.float32)[None, :] / w
+    t = 2.0 * np.pi * (1.5 * xs + ys)
+    dh = scene.SHIFT_PX + a_h * torch.sin(t + p_h)
+    dv = a_v * torch.cos(2.0 * np.pi * (xs - 2.0 * ys) + p_v)
+    return dh.contiguous(), dv.contiguous()
+
+
 def conv2d_blur(x):
     """The zero-boundary Gaussian as one depthwise F.conv2d with the 5x5
     outer product of the taps (TF32 off: device.resolve_device)."""
@@ -392,12 +418,14 @@ def check_kernels(dev, cfg, report: dict) -> None:
                         work=(taps_bytes(src, oh, ow, iy, ix, bil),
                               src.shape[0] * oh * ow * per_out),
                         library=library)
+        sh, sv = smooth_field(dev, h, w)
         for method, name in (("nearest", "warp"),
                              ("bilinear", "warp_bilinear")):
-            compare(report, name, tag, warp.warp, warp.warp_plain,
-                    (left, dh, dv, method),
-                    work=(8 * hw * 4.0, WARP_OPS[method] * hw),
-                    library=grid_sample_warp(left, dh, dv, method))
+            for sub, fh, fv in ((tag, dh, dv), (f"{tag}-smooth", sh, sv)):
+                compare(report, name, sub, warp.warp, warp.warp_plain,
+                        (left, fh, fv, method),
+                        work=(8 * hw * 4.0, WARP_OPS[method] * hw),
+                        library=grid_sample_warp(left, fh, fv, method))
         for thr, rep in ((1.0, False), (0.55, True)):
             compare(report, "direction", tag,
                     direction.fused_direction_update,
@@ -410,7 +438,7 @@ def check_kernels(dev, cfg, report: dict) -> None:
                       (SMOOTH_PASS_OPS * smooth_n + AVERAGE_OPS) * hw))
         check_row_halo(report, tag, left, warped, bl2, state, dh, dv,
                        smooth_n, cfg.conf_consts)
-        del left, warped, bl2, state, stacked, up_src, dh, dv, sq
+        del left, warped, bl2, state, stacked, up_src, dh, dv, sq, sh, sv
         torch.cuda.empty_cache()
 
 
@@ -423,9 +451,10 @@ def band(x, lo: int, hi: int):
 
 def check_row_halo(report: dict, tag: str, left, warped, bl2, state, dh, dv,
                    smooth_n: int, consts) -> None:
-    """Phase 2a, row-sharded forms: warp, direction and smooth on the
-    middle shard of four (timed; 816 rows at 16 MP) and the bottom shard
-    (checked only), each against its plain version."""
+    """Phase 2a, row-sharded forms: warp (on the random field dh, dv and
+    on the smooth one), direction and smooth on the middle shard of four
+    (timed; 816 rows at 16 MP) and the bottom shard (checked only), each
+    against its plain version."""
     from ug_stereomatcher_tpu_torch.ops.cuda import direction, smooth, warp
     from ug_stereomatcher_tpu_torch.parallel import row_splits
 
@@ -435,14 +464,17 @@ def check_row_halo(report: dict, tag: str, left, warped, bl2, state, dh, dv,
         a, b = splits[shard]
         hl, px = b - a, (b - a) * w
         sub = f"{tag}-shard{shard}"
-        dh_s, dv_s = dh[a:b].contiguous(), dv[a:b].contiguous()
+        fields = ((sub, dh[a:b].contiguous(), dv[a:b].contiguous()),
+                  (f"{sub}-smooth", *smooth_field(left.device, hl, w, a, h)))
         for method, name in (("nearest", "warp_row_halo"),
                              ("bilinear", "warp_bilinear_row_halo")):
-            compare(report, name, sub, warp.warp, warp.warp_plain,
-                    (left, dh_s, dv_s, method, a),
-                    work=(8 * px * 4.0, WARP_OPS[method] * px),
-                    library=grid_sample_warp(left, dh_s, dv_s, method, a),
-                    timed=timed)
+            for fsub, dh_s, dv_s in fields:
+                compare(report, name, fsub, warp.warp, warp.warp_plain,
+                        (left, dh_s, dv_s, method, a),
+                        work=(8 * px * 4.0, WARP_OPS[method] * px),
+                        library=grid_sample_warp(left, dh_s, dv_s, method,
+                                                 a),
+                        timed=timed)
         d = direction.HALO
         compare(report, "direction_row_halo", sub,
                 direction.fused_direction_update,
@@ -829,7 +861,10 @@ KERNELS = {
 }
 
 
-AB_TIMES = ("match_warm_median_s", "blur_ms", "warp_ms", "direction_ms",
+AB_TIMES = ("match_warm_median_s", "match_busy_share",
+            "bilinear_match_warm_median_s", "bilinear_match_busy_share",
+            "blur_ms", "warp_ms", "warp_bilinear_ms", "warp_smooth_ms",
+            "warp_bilinear_smooth_ms", "direction_ms", "direction_row_halo_ms",
             "smooth_ms", "level8_ms", "level13_ms", "resample_ms",
             "resample_bilinear_ms")
 
@@ -841,6 +876,7 @@ def ab_child(tree: str, matches: int) -> dict:
     from ug_stereomatcher_tpu_torch import MatcherConfig, StereoEngine, scene
     from ug_stereomatcher_tpu_torch.ops.cuda import (
         blur, direction, level, resample, smooth, warp)
+    from ug_stereomatcher_tpu_torch.parallel import row_splits
 
     where = Path(port.__file__).resolve()
     if Path(tree).resolve() not in where.parents:
@@ -849,15 +885,23 @@ def ab_child(tree: str, matches: int) -> dict:
     left_np, right_np = scene.make_pair(H, W, seed=SEED)
     left = torch.from_numpy(left_np).to(dev)
     right = torch.from_numpy(right_np).to(dev)
-    eng = StereoEngine(MatcherConfig(), device=dev)
-    eng.match(left, right)
-    torch.cuda.synchronize()
-    warm = []
-    for _ in range(matches):
-        t0 = time.perf_counter()
+    times = {"tree": tree}
+    for label, interp in (("match", "nearest"), ("bilinear_match", "bilinear")):
+        eng = StereoEngine(MatcherConfig(interp=interp), device=dev)
         eng.match(left, right)
         torch.cuda.synchronize()
-        warm.append(time.perf_counter() - t0)
+        warm = []
+        for _ in range(matches):
+            t0 = time.perf_counter()
+            eng.match(left, right)
+            torch.cuda.synchronize()
+            warm.append(time.perf_counter() - t0)
+        median = statistics.median(warm)
+        prof = profile_match(lambda: eng.match(left, right), median, label)
+        times.update({f"{label}_warm_s": warm,
+                      f"{label}_warm_median_s": median,
+                      f"{label}_busy_share": prof["busy_share"]})
+    del left, right
 
     gen = torch.Generator(device=dev).manual_seed(SEED)
 
@@ -871,16 +915,30 @@ def ab_child(tree: str, matches: int) -> dict:
                          rand(H, W, lo=-1.0, hi=1.0),
                          rand(H, W, lo=0.05, hi=1.0)])
     dh, dv = rand(H, W, lo=-24.0, hi=30.0), rand(H, W, lo=-12.0, hi=12.0)
-    times = {
-        "tree": tree, "match_warm_s": warm,
-        "match_warm_median_s": statistics.median(warm),
+    sh, sv = smooth_field(dev, H, W)
+    a, b = row_splits(H, 4)[1]
+    d = direction.HALO
+    band_img = img[:, a - d:b + d].contiguous()
+    band_other = other[:, a - d:b + d].contiguous()
+    band_bl2, band_state = (x[:, a:b].contiguous() for x in (bl2, state))
+    times.update({
         "blur_ms": cuda_ms(lambda: blur.fused_blur_gaussian(img, "clamp")),
         "warp_ms": cuda_ms(lambda: warp.warp(img, dh, dv)),
+        "warp_bilinear_ms": cuda_ms(
+            lambda: warp.warp(img, dh, dv, "bilinear")),
+        "warp_smooth_ms": cuda_ms(lambda: warp.warp(img, sh, sv)),
+        "warp_bilinear_smooth_ms": cuda_ms(
+            lambda: warp.warp(img, sh, sv, "bilinear")),
         "direction_ms": cuda_ms(lambda: direction.fused_direction_update(
             img, other, bl2, state, 1.0, False)),
+        "direction_row_halo_ms": cuda_ms(
+            lambda: direction.fused_direction_update(
+                band_img, band_other, band_bl2, band_state, 1.0, False,
+                row0=a, global_h=H)),
         "smooth_ms": cuda_ms(lambda: smooth.fused_smooth_average(state, 10)),
-    }
-    del img, other, bl2, state, dh, dv
+    })
+    del img, other, bl2, state, dh, dv, sh, sv, band_img, band_other
+    del band_bl2, band_state
 
     cfg = MatcherConfig()
     chain = cfg.dims_chain(H, W)
@@ -916,7 +974,7 @@ def ab(trees, rounds: int, matches: int, out) -> int:
         for name, tree in (trees if r % 2 == 0 else trees[::-1]):
             proc = subprocess.run(
                 [sys.executable, str(Path(__file__).resolve()), "--ab-child",
-                 tree, "--matches", str(matches)],
+                 tree, "--matches", str(matches), "--seed", str(SEED)],
                 capture_output=True, text=True, timeout=900)
             if proc.returncode != 0:
                 print(proc.stdout + proc.stderr, file=sys.stderr)
@@ -929,10 +987,13 @@ def ab(trees, rounds: int, matches: int, out) -> int:
     summary = {}
     for name, _ in trees:
         mine = [x for x in runs if x["name"] == name]
-        summary[name] = {k: statistics.median(x[k] for x in mine)
+        summary[name] = {k: {"median": statistics.median(x[k] for x in mine),
+                             "min": min(x[k] for x in mine),
+                             "max": max(x[k] for x in mine)}
                          for k in AB_TIMES}
-        print(f"{name}: " + " ".join(f"{k}={v:.4f}"
-                                     for k, v in summary[name].items()))
+        print(f"{name}: " + " ".join(
+            f"{k}={v['median']:.4f} [{v['min']:.4f}, {v['max']:.4f}]"
+            for k, v in summary[name].items()))
     if out:
         with open(out, "w") as fh:
             json.dump({"nvidia_smi": smi, "runs": runs, "summary": summary},
@@ -972,6 +1033,7 @@ def gate_sweep(dev, cfg, left, right, gates, rounds: int,
 
 
 def main() -> int:
+    global SEED
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="write the full report here as JSON")
     ap.add_argument("--ab", action="append", default=[],
@@ -980,10 +1042,13 @@ def main() -> int:
     ap.add_argument("--rounds", type=int,
                     help="rounds of --ab (default 2) or --gates (8)")
     ap.add_argument("--matches", type=int, default=7)
+    ap.add_argument("--seed", type=int, default=SEED,
+                    help="seed of the scene, the inputs and the fields")
     ap.add_argument("--ab-child", help=argparse.SUPPRESS)
     ap.add_argument("--gates", help="time the match at these comma-"
                     "separated level-resident gates instead")
     args = ap.parse_args()
+    SEED = args.seed
 
     if not torch.cuda.is_available():
         print("chip_smoke: torch finds no CUDA device; nothing to run",

@@ -99,21 +99,65 @@ def test_resample_bilinear_bit_exact(cuda, case):
                                                            wy, wx))
 
 
-@pytest.mark.parametrize("spread", [6.0, 60.0, 900.0])
-def test_warp_bit_exact(cuda, spread):
-    h, w = 64, 300
-    args = (rand(cuda, 3, h, w), rand(cuda, h, w, lo=-spread, hi=spread, seed=1),
-            rand(cuda, h, w, lo=-spread / 4, hi=spread / 4, seed=2))
-    assert_same(warp.warp_nearest, warp.warp_nearest_plain, *args)
+def smooth_field(dev, h, w, row0=0, seed=0):
+    """The bench scene's 3 px shift plus a sinusoid of a few pixels in
+    each axis, as a matcher's field is: (dh, dv) of rows row0 .. row0 + h
+    (an image of 2 h rows at most)."""
+    rng = np.random.RandomState(seed)
+    a, b, ph, pv = rng.uniform(1.0, 4.0), rng.uniform(0.5, 2.0), *rng.uniform(
+        0.0, 6.28, 2)
+    ys = torch.arange(row0, row0 + h, device=dev, dtype=torch.float32)[:, None]
+    xs = torch.arange(w, device=dev, dtype=torch.float32)[None, :]
+    t = 6.2831853 * (xs / max(w, 2) + ys / max(2 * h, 2))
+    return (3.0 + a * torch.sin(t + ph)).contiguous(), (
+        b * torch.cos(1.7 * t + pv)).contiguous()
 
 
-@pytest.mark.parametrize("spread", [0.75, 6.0, 900.0])
-def test_warp_bilinear_bit_exact(cuda, spread):
-    h, w = 64, 300
-    args = (rand(cuda, 3, h, w), rand(cuda, h, w, lo=-spread, hi=spread, seed=1),
-            rand(cuda, h, w, lo=-spread / 4, hi=spread / 4, seed=2),
-            "bilinear")
-    assert_same(warp.warp, warp.warp_plain, *args)
+# Random fields of each spread (dv a quarter of dh's), or smooth.
+WARP_FIELDS = ["random0.75", "random6", "random60", "random900", "smooth"]
+# Every W mod 4, below one warp's 32 columns and below a thread's K * 32
+# (K = 4 nearest, 2 bilinear), one row, and several blocks.
+WARP_SHAPES = [(64, 300), (9, 29), (9, 30), (9, 31), (9, 32), (5, 63),
+               (7, 97), (3, 126), (3, 127), (3, 129), (1, 300), (1, 5),
+               (40, 261)]
+
+
+def warp_args(dev, h, w, field):
+    img = rand(dev, 3, h, w)
+    if field == "smooth":
+        dh, dv = smooth_field(dev, h, w)
+    else:
+        spread = float(field[len("random"):])
+        dh = rand(dev, h, w, lo=-spread, hi=spread, seed=1)
+        dv = rand(dev, h, w, lo=-spread / 4, hi=spread / 4, seed=2)
+    return img, dh, dv
+
+
+@pytest.mark.parametrize("h,w", WARP_SHAPES)
+@pytest.mark.parametrize("field", WARP_FIELDS)
+def test_warp_bit_exact(cuda, field, h, w):
+    assert_same(warp.warp_nearest, warp.warp_nearest_plain,
+                *warp_args(cuda, h, w, field))
+
+
+@pytest.mark.parametrize("h,w", WARP_SHAPES)
+@pytest.mark.parametrize("field", WARP_FIELDS)
+def test_warp_bilinear_bit_exact(cuda, field, h, w):
+    assert_same(warp.warp, warp.warp_plain,
+                *warp_args(cuda, h, w, field), "bilinear")
+
+
+@pytest.mark.parametrize("method", ["nearest", "bilinear"])
+@pytest.mark.parametrize("channels", [1, 3, 4, 6])
+def test_warp_source_at_odd_offset_bit_exact(cuda, method, channels):
+    """A source that is a view one float into its storage (4-byte, never
+    8-byte aligned), and channel counts that are not a multiple of 3."""
+    h, w = 23, 77
+    store = rand(cuda, channels * h * w + 1)
+    img = store[1:].view(channels, h, w)
+    assert img.is_contiguous() and img.data_ptr() % 8 == 4
+    dh, dv = smooth_field(cuda, h, w)
+    assert_same(warp.warp, warp.warp_plain, img, dh, dv, method)
 
 
 def _level_inputs(dev, h, w, seed=0):
@@ -171,9 +215,16 @@ def test_level_resident_two_barriers_per_iteration(cuda, mi):
     assert all(c > 0 for c in prof["cycles"].values()), prof
 
 
+# The tile is 16 x 64: shapes far below it, one row and one column past
+# it (and past two tiles' rows), below one tile, and several tiles with a
+# partial one each way.
+DIRECTION_SHAPES = [(1, 1), (2, 3), (5, 7), (17, 64), (16, 65), (17, 65),
+                    (33, 65), (12, 40), (67, 131), (100, 200)]
+
+
+@pytest.mark.parametrize("h,w", DIRECTION_SHAPES)
 @pytest.mark.parametrize("threshold,replace", [(1.0, False), (0.55, True)])
-def test_direction_bit_exact(cuda, threshold, replace):
-    h, w = 67, 131
+def test_direction_bit_exact(cuda, threshold, replace, h, w):
     left = rand(cuda, 3, h, w, hi=255.0, seed=3)
     warped = rand(cuda, 3, h, w, hi=255.0, seed=4)
     bl2 = blur.fused_blur_gaussian_plain(left * left, "clamp")
@@ -233,29 +284,36 @@ def band(x, lo, hi):
     return x.index_select(-2, idx).contiguous()
 
 
+@pytest.mark.parametrize("field", ["random", "smooth"])
 @pytest.mark.parametrize("shard", sorted(SHARDS))
 @pytest.mark.parametrize("method", ["nearest", "bilinear"])
-def test_warp_row_halo_bit_exact(cuda, method, shard):
+def test_warp_row_halo_bit_exact(cuda, method, shard, field):
     a, b = par.row_splits(ROWS, 4)[SHARDS[shard]]
     img = rand(cuda, 3, ROWS, COLS)
-    dh = rand(cuda, ROWS, COLS, lo=-60.0, hi=60.0, seed=1)
-    dv = rand(cuda, ROWS, COLS, lo=-20.0, hi=20.0, seed=2)
+    if field == "smooth":
+        dh, dv = smooth_field(cuda, ROWS, COLS)
+    else:
+        dh = rand(cuda, ROWS, COLS, lo=-60.0, hi=60.0, seed=1)
+        dv = rand(cuda, ROWS, COLS, lo=-20.0, hi=20.0, seed=2)
     args = (img, dh[a:b].contiguous(), dv[a:b].contiguous(), method, a)
     assert_same(warp.warp, warp.warp_plain, *args)
     assert torch.equal(warp.warp(*args), warp.warp(img, dh, dv, method)[:, a:b])
 
 
+@pytest.mark.parametrize("rows", [ROWS, 150])
 @pytest.mark.parametrize("shard", sorted(SHARDS))
-def test_direction_row_halo_bit_exact(cuda, shard):
-    a, b = par.row_splits(ROWS, 4)[SHARDS[shard]]
+def test_direction_row_halo_bit_exact(cuda, shard, rows):
+    """Shards as tall as the 16-row tile or shorter (61 rows: 16, 16, 16
+    and 13) and taller (150 rows: 38 and 36)."""
+    a, b = par.row_splits(rows, 4)[SHARDS[shard]]
     h = direction.HALO
-    left = rand(cuda, 3, ROWS, COLS, hi=255.0, seed=3)
-    warped = rand(cuda, 3, ROWS, COLS, hi=255.0, seed=4)
+    left = rand(cuda, 3, rows, COLS, hi=255.0, seed=3)
+    warped = rand(cuda, 3, rows, COLS, hi=255.0, seed=4)
     bl2 = blur.fused_blur_gaussian_plain(left * left, "clamp")
-    disp = rand(cuda, 3, ROWS, COLS, lo=-0.5, hi=0.5, seed=5)
+    disp = rand(cuda, 3, rows, COLS, lo=-0.5, hi=0.5, seed=5)
     args = (band(left, a - h, b + h), band(warped, a - h, b + h),
             bl2[:, a:b].contiguous(), disp[:, a:b].contiguous(), 0.55,
-            shard == "top", CONSTS, a, ROWS)
+            shard == "top", CONSTS, a, rows)
     assert_same(direction.fused_direction_update,
                 direction.fused_direction_update_plain, *args)
     whole = direction.fused_direction_update(left, warped, bl2, disp, 0.55,

@@ -26,7 +26,7 @@ constexpr int kTH = 32;  // tile height (4 rows per thread)
 // image's global edges, so the band's rows equal the whole image's; a
 // staged row past the band (read only by a tile row past out_rows) is
 // clamped to the band.
-template <bool CLAMP, bool SQUARE, bool BAND>
+template <bool CLAMP, bool BAND>
 __global__ void __launch_bounds__(kBX * kBY)
     sep5_kernel(const float* __restrict__ x, float* __restrict__ out, int H,
                 int W, Taps5 taps, int x_row0, int x_rows, int out_row0,
@@ -55,7 +55,6 @@ __global__ void __launch_bounds__(kBX * kBY)
         const bool inside = gr >= 0 && gr < H && gc >= 0 && gc < W;
         v = inside ? xp[(size_t)gr * W + gc] : 0.0f;
       }
-      if (SQUARE) v = v * v;
       xs[i][j] = v;
     }
   }
@@ -84,43 +83,25 @@ __global__ void __launch_bounds__(kBX * kBY)
 }  // namespace
 
 void launch_sep5(const float* x, float* out, int C, int H, int W, int clamp,
-                 int square, Taps5 taps, cudaStream_t stream) {
+                 Taps5 taps, cudaStream_t stream) {
   const dim3 block(kBX, kBY);
   const dim3 grid((W + kBX - 1) / kBX, (H + kTH - 1) / kTH, C);
   if (clamp) {
-    if (square) {
-      sep5_kernel<true, true, false>
-          <<<grid, block, 0, stream>>>(x, out, H, W, taps, 0, H, 0, H, H);
-    } else {
-      sep5_kernel<true, false, false>
-          <<<grid, block, 0, stream>>>(x, out, H, W, taps, 0, H, 0, H, H);
-    }
+    sep5_kernel<true, false>
+        <<<grid, block, 0, stream>>>(x, out, H, W, taps, 0, H, 0, H, H);
   } else {
-    if (square) {
-      sep5_kernel<false, true, false>
-          <<<grid, block, 0, stream>>>(x, out, H, W, taps, 0, H, 0, H, H);
-    } else {
-      sep5_kernel<false, false, false>
-          <<<grid, block, 0, stream>>>(x, out, H, W, taps, 0, H, 0, H, H);
-    }
+    sep5_kernel<false, false>
+        <<<grid, block, 0, stream>>>(x, out, H, W, taps, 0, H, 0, H, H);
   }
 }
 
 void launch_sep5_band(const float* x, float* out, int C, int H, int W,
                       int x_row0, int x_rows, int out_row0, int out_rows,
-                      int out_plane_rows, int square, Taps5 taps,
-                      cudaStream_t stream) {
+                      int out_plane_rows, Taps5 taps, cudaStream_t stream) {
   const dim3 block(kBX, kBY);
   const dim3 grid((W + kBX - 1) / kBX, (out_rows + kTH - 1) / kTH, C);
-  if (square) {
-    sep5_kernel<true, true, true><<<grid, block, 0, stream>>>(
-        x, out, H, W, taps, x_row0, x_rows, out_row0, out_rows,
-        out_plane_rows);
-  } else {
-    sep5_kernel<true, false, true><<<grid, block, 0, stream>>>(
-        x, out, H, W, taps, x_row0, x_rows, out_row0, out_rows,
-        out_plane_rows);
-  }
+  sep5_kernel<true, true><<<grid, block, 0, stream>>>(
+      x, out, H, W, taps, x_row0, x_rows, out_row0, out_rows, out_plane_rows);
 }
 
 }  // namespace ugsm
@@ -129,7 +110,7 @@ UGSM_API int ugsm_sep5(const float* x, float* out, int C, int H, int W,
                        int clamp, float t0, float t1, float t2, float t3,
                        float t4, void* stream) {
   if (C < 1 || C > 65535 || H < 1 || W < 1) return (int)cudaErrorInvalidValue;
-  ugsm::launch_sep5(x, out, C, H, W, clamp, /*square=*/0,
+  ugsm::launch_sep5(x, out, C, H, W, clamp,
                     ugsm::make_taps5(t0, t1, t2, t3, t4),
                     (cudaStream_t)stream);
   return (int)cudaGetLastError();

@@ -50,11 +50,39 @@ __device__ __forceinline__ float pass5(const Taps5& tp, float xm2, float xm1,
   return acc;
 }
 
+// pass5 for taps that are all nonzero (the Gaussian): the same terms in
+// the same order, without pass5's tests for zero taps.
+__device__ __forceinline__ float pass5_all(const Taps5& tp, float xm2,
+                                           float xm1, float x0, float xp1,
+                                           float xp2) {
+  float acc = tp.t[4] * xm2;
+  acc = acc + tp.t[3] * xm1;
+  acc = acc + tp.t[2] * x0;
+  acc = acc + tp.t[1] * xp1;
+  return acc + tp.t[0] * xp2;
+}
+
+// Asynchronous copy of one float from device memory to shared memory
+// (cp.async through L1, for planes no block writes during the launch);
+// fill == false writes 0 and reads nothing.  Complete after
+// cp_async_wait_all() and, for other threads, a block barrier.
+__device__ __forceinline__ void cp_async4(float* smem, const float* gmem,
+                                          bool fill) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
+               "l"(gmem), "r"(fill ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
 // Separable 5-tap blur of C planes (H, W): row pass, then column pass,
-// zero (clamp == 0) or clamp boundary per pass; square != 0 blurs x*x.
-// Defined in blur.cu; launches on `stream`, does not check errors.
+// zero (clamp == 0) or clamp boundary per pass.  Defined in blur.cu;
+// launches on `stream`, does not check errors.
 void launch_sep5(const float* x, float* out, int C, int H, int W, int clamp,
-                 int square, Taps5 taps, cudaStream_t stream);
+                 Taps5 taps, cudaStream_t stream);
 
 // The clamp-boundary form for a band of the H-row image (a row shard):
 // x holds x_rows rows from global row x_row0; out_rows rows from global
@@ -64,7 +92,6 @@ void launch_sep5(const float* x, float* out, int C, int H, int W, int clamp,
 // them.  Defined in blur.cu.
 void launch_sep5_band(const float* x, float* out, int C, int H, int W,
                       int x_row0, int x_rows, int out_row0, int out_rows,
-                      int out_plane_rows, int square, Taps5 taps,
-                      cudaStream_t stream);
+                      int out_plane_rows, Taps5 taps, cudaStream_t stream);
 
 }  // namespace ugsm

@@ -18,12 +18,13 @@
 // loop over 16 x 32 tiles that recomputes its halo in shared memory
 // instead of waiting for the neighbouring blocks:
 //
-// * phase A (warp -> G(W^2) -> direction): the block warps the right
-//   image by the state into shared memory over the tile +- 3 rows and
-//   columns, clamped to the image (the W halo of the direction tile),
-//   blurs W^2 there over the tile +- 1 (the clamped shifted reads; row
-//   pass, then column pass, each value rounded as the blur kernel rounds
-//   it), and runs the direction tile from those; writes `upd`;
+// * phase A (warp -> G(W^2) -> direction): the block stages L and warps
+//   the right image by the state into shared memory over the tile +- 3
+//   rows and columns, clamped to the image (the W halo of the direction
+//   tile), blurs W^2 there over the tile +- 1 (the clamped shifted reads;
+//   row pass, then column pass, each value rounded as the blur kernel
+//   rounds it), and runs the direction tile body of direction.cu
+//   (stencils.cuh, one row per thread here) from those; writes `upd`;
 // * phase B (n smoothing passes -> average): the block loads `upd` over
 //   the tile +- (n + 1), clipped to the image, runs the passes in shared
 //   memory (ping-pong, a pass spoils one more line at each side of the
@@ -67,20 +68,16 @@
 
 namespace {
 
-using ugsm::kDirBX;
-using ugsm::kDirBY;
-using ugsm::kWCols;
-using ugsm::kWRows;
-using ugsm::WRow;
-
-constexpr int kThreads = kDirBX * kDirBY;  // one direction tile per block
+// One direction tile per block, one row per thread: the prologue's G(L^2)
+// at a pixel is written by the thread that reads it in phase A.
+using Tile = ugsm::DirTile<32, 16, 1>;
+constexpr int kTW = Tile::kTW, kTH = Tile::kTH;
+constexpr int kThreads = Tile::kThreads;
 constexpr int kMaxIters = 256;
 constexpr int kMaxSmooth = 1024;  // far above what shared memory holds
-constexpr int kGRows = kDirBY + 2;  // Gc(W^2) over the tile +- 1
-constexpr int kGCols = kDirBX + 2;
 // Clock stamps of block 0, in the order of ops/cuda/level.py PHASES:
-// G(L^2); phase A's warp, Gc(W^2), direction and barrier; phase B's
-// window load, passes, average and barrier.
+// G(L^2); phase A's warp (with the staging of L), Gc(W^2), direction and
+// barrier; phase B's window load, passes, average and barrier.
 enum Phase { kPrologue, kWarp, kGW2, kDirection, kBarrierA, kLoad, kPasses,
              kAverage, kBarrierB, kPhases };
 constexpr int kBarWords = 2 + kPhases;  // arrivals, barriers, cycles
@@ -103,7 +100,7 @@ struct LevelArgs {
 // +- (n + 1).
 size_t window_bytes(int n_smooth) {
   const size_t h = (size_t)n_smooth + 1;
-  return 2 * 3 * (kDirBY + 2 * h) * (kDirBX + 2 * h) * sizeof(float);
+  return 2 * 3 * (kTH + 2 * h) * (kTW + 2 * h) * sizeof(float);
 }
 
 // Block 0's thread (0, 0) adds the cycles since its previous stamp to
@@ -142,82 +139,43 @@ __device__ __forceinline__ void grid_sync(unsigned int* bar,
   __syncthreads();
 }
 
-// W and Gc(W^2) of phase A for direction_tile_with, from the block's
-// shared tiles: w3 (3 x kWRows rows) and g3 (3 x kGRows rows).
-struct TileW {
-  WRow* w3;
-  float (*g3)[kGCols];
-  __device__ __forceinline__ WRow* stage(int c, int, int) const {
-    return w3 + c * kWRows;
-  }
-  __device__ __forceinline__ float gw2(int c, int, int, int dy,
-                                       int dx) const {
-    return g3[c * kGRows + threadIdx.y + 1 + dy][threadIdx.x + 1 + dx];
-  }
-};
-
 // Phase A of the tile at (r0, c0): warp -> Gc(W^2) -> direction update
-// from the state `src`, into a.upd.  `rows` (3 kWRows kGCols floats of
-// shared memory) holds Gc(W^2)'s row pass.
+// from the state `src`, into a.upd.  `rows` (3 WR GC floats of shared
+// memory) holds Gc(W^2)'s row pass.
 template <bool BILINEAR>
 __device__ __forceinline__ void phase_a(const LevelArgs& a, const float* src,
-                                        int m, WRow* w3,
-                                        float (*g3)[kGCols], float* rows,
+                                        int m, Tile& t, float* rows,
                                         long long* clk, int r0, int c0) {
   using ugsm::clampi;
   using ugsm::LdL2;
   using ugsm::LdPlain;
   const int H = a.H, W = a.W;
   const size_t plane = (size_t)H * W;
-  const int tid = threadIdx.y * kDirBX + threadIdx.x;
-  // W over the tile +- 3, clamped: row i of w3 is image row
-  // clamp(r0 - 3 + i), column j image column clamp(c0 - 3 + j)
-  for (int i = tid; i < kWRows * kWCols; i += kThreads) {
-    const int rr = clampi(r0 - 3 + i / kWCols, 0, H - 1);
-    const int cc = clampi(c0 - 3 + i % kWCols, 0, W - 1);
+  const ugsm::RowBlock g = ugsm::whole_image(H);
+  // L over the tile +- 2 (left is never written: cp.async through L1),
+  // while the block warps W into t.w over the tile +- 3, clamped: row i
+  // is image row clamp(r0 - 3 + i), column j image column clamp(c0 - 3 +
+  // j)
+  ugsm::direction_stage_left<false>(t, a.left, g, W, r0, c0);
+  for (int i = ugsm::block_tid(); i < Tile::WR * Tile::WC; i += kThreads) {
+    const int rr = clampi(r0 - 3 + i / Tile::WC, 0, H - 1);
+    const int cc = clampi(c0 - 3 + i % Tile::WC, 0, W - 1);
     const size_t p = (size_t)rr * W + cc;
-    ugsm::warp_px<BILINEAR>(a.right, &w3[0][0], 3, H, W, kWRows * kWCols, i,
-                            rr, cc, LdL2::ld(src + p),
+    ugsm::warp_px<BILINEAR>(a.right, &t.w[0][0][0], 3, H, W,
+                            Tile::WR * Tile::WC, i, rr, cc, LdL2::ld(src + p),
                             LdL2::ld(src + plane + p));
   }
+  ugsm::cp_async_wait_all();
   __syncthreads();
   stamp(clk, kWarp);
-  // Gc(W^2) over the tile +- 1, clamped, from w3 (every clamped
-  // neighbour lies within the tile +- 3), in two passes that round as
-  // sep5_clamp_at does: the row pass of W^2 at the G columns, over w3's
-  // rows, into `rows`, then the column pass
-  for (int i = tid; i < 3 * kWRows * kGCols; i += kThreads) {
-    const int cr = i / kGCols, j = i - cr * kGCols;  // cr: channel, w3 row
-    const int cc = clampi(c0 - 1 + j, 0, W - 1);
-    float v[5];
-#pragma unroll
-    for (int d = 0; d < 5; ++d) {
-      const float x = w3[cr][clampi(cc + d - 2, 0, W - 1) - (c0 - 3)];
-      v[d] = x * x;
-    }
-    rows[i] = ugsm::pass5(a.gauss, v[0], v[1], v[2], v[3], v[4]);
-  }
-  __syncthreads();
-  for (int i = tid; i < 3 * kGRows * kGCols; i += kThreads) {
-    const int cg = i / kGCols, j = i - cg * kGCols;  // cg: channel, G row
-    const int c = cg / kGRows;
-    const int rr = clampi(r0 - 1 + (cg - c * kGRows), 0, H - 1);
-    float v[5];
-#pragma unroll
-    for (int d = 0; d < 5; ++d) {
-      const int wr = clampi(rr + d - 2, 0, H - 1) - (r0 - 3);  // w3 row
-      v[d] = rows[(c * kWRows + wr) * kGCols + j];
-    }
-    g3[cg][j] = ugsm::pass5(a.gauss, v[0], v[1], v[2], v[3], v[4]);
-  }
-  __syncthreads();
+  ugsm::direction_gw2<3>(t, rows, H, W, r0, c0, a.gauss);
   stamp(clk, kGW2);
-  // The coarsest level's first iteration replaces the confidence.  left
-  // is never written, and G(L^2) at a pixel was written by this thread:
-  // both may come through L1.
-  ugsm::direction_tile_with<LdL2, false, TileW, LdPlain>(
-      a.left, a.bl2, src, a.upd, ugsm::whole_image(H), W, r0, c0, a.thr[m],
-      a.replace_first && m == 0, a.gauss, a.k, TileW{w3, g3});
+  // The coarsest level's first iteration replaces the confidence.  G(L^2)
+  // at a pixel was written by this thread: it may come through L1.
+  ugsm::direction_update_tile<LdL2, false, LdPlain>(
+      t, a.bl2, src, a.upd, g, W, r0, c0, a.thr[m],
+      a.replace_first && m == 0, a.gauss, a.k);
+  __syncthreads();  // every read of t done before the block's next tile
   stamp(clk, kDirection);
 }
 
@@ -230,9 +188,9 @@ __device__ __forceinline__ void phase_b(const LevelArgs& a, float* win,
   using ugsm::LdPlain;
   const int H = a.H, W = a.W, n = a.n_smooth, h = n + 1;
   const size_t plane = (size_t)H * W;
-  const int tid = threadIdx.y * kDirBX + threadIdx.x;
-  const int ra = max(r0 - h, 0), rb = min(r0 + kDirBY + h, H);
-  const int ca = max(c0 - h, 0), cb = min(c0 + kDirBX + h, W);
+  const int tid = ugsm::block_tid();
+  const int ra = max(r0 - h, 0), rb = min(r0 + kTH + h, H);
+  const int ca = max(c0 - h, 0), cb = min(c0 + kTW + h, W);
   const int rw = cb - ca, wp = (rb - ra) * rw;
   for (int i = tid; i < wp; i += kThreads) {
     const size_t g = (size_t)(ra + i / rw) * W + ca + i % rw;
@@ -270,31 +228,30 @@ __device__ __forceinline__ void phase_b(const LevelArgs& a, float* win,
 template <bool BILINEAR>
 __global__ void __launch_bounds__(kThreads, 2)
     level_kernel(const LevelArgs a) {
-  __shared__ float w3[3 * kWRows][kWCols];
-  __shared__ float g3[3 * kGRows][kGCols];
+  __shared__ Tile t;
   extern __shared__ float win[];  // phase B's window; phase A's row pass
   __shared__ long long clk[kPhases + 1];  // block 0's stamps
   const int H = a.H, W = a.W;
   const size_t plane = (size_t)H * W;
   const unsigned int nblocks = gridDim.x;
-  const int ntx = (W + kDirBX - 1) / kDirBX;
-  const int ntiles = ntx * ((H + kDirBY - 1) / kDirBY);
+  const int ntx = (W + kTW - 1) / kTW;
+  const int ntiles = ntx * ((H + kTH - 1) / kTH);
 
   if (blockIdx.x == 0 && threadIdx.x == 0 && threadIdx.y == 0) {
     for (int k = 0; k < kPhases; ++k) clk[k] = 0;
     clk[kPhases] = clock64();
   }
   if (a.mi == 0) {
-    for (size_t p = blockIdx.x * kThreads + threadIdx.y * kDirBX + threadIdx.x;
+    for (size_t p = blockIdx.x * kThreads + ugsm::block_tid();
          p < 3 * plane; p += (size_t)gridDim.x * kThreads)
       a.state[p] = a.disp[p];
     return;
   }
   // G(L^2), which holds for the whole level, at each pixel by the thread
   // that reads it in phase A (the same tiles, in the same order)
-  for (int t = blockIdx.x; t < ntiles; t += gridDim.x) {
-    const int r = (t / ntx) * kDirBY + threadIdx.y;
-    const int x = (t % ntx) * kDirBX + threadIdx.x;
+  for (int i = blockIdx.x; i < ntiles; i += gridDim.x) {
+    const int r = (i / ntx) * kTH + threadIdx.y;
+    const int x = (i % ntx) * kTW + threadIdx.x;
     if (r >= H || x >= W) continue;
     for (int c = 0; c < 3; ++c) {
       a.bl2[c * plane + (size_t)r * W + x] = ugsm::sep5_clamp_at<true>(
@@ -306,14 +263,14 @@ __global__ void __launch_bounds__(kThreads, 2)
 
   for (int m = 0; m < a.mi; ++m) {
     const float* src = m == 0 ? a.disp : a.state;
-    for (int t = blockIdx.x; t < ntiles; t += gridDim.x) {
-      phase_a<BILINEAR>(a, src, m, w3, g3, win, clk, (t / ntx) * kDirBY,
-                        (t % ntx) * kDirBX);
+    for (int i = blockIdx.x; i < ntiles; i += gridDim.x) {
+      phase_a<BILINEAR>(a, src, m, t, win, clk, (i / ntx) * kTH,
+                        (i % ntx) * kTW);
     }
     grid_sync(a.bar, nblocks);
     stamp(clk, kBarrierA);
-    for (int t = blockIdx.x; t < ntiles; t += gridDim.x) {
-      phase_b(a, win, clk, (t / ntx) * kDirBY, (t % ntx) * kDirBX);
+    for (int i = blockIdx.x; i < ntiles; i += gridDim.x) {
+      phase_b(a, win, clk, (i / ntx) * kTH, (i % ntx) * kTW);
     }
     if (m + 1 < a.mi) grid_sync(a.bar, nblocks);
     stamp(clk, kBarrierB);
@@ -406,13 +363,14 @@ UGSM_API int ugsm_level_resident(
     float aff_scale, float aff_bias, float w_new, float w_old, int grid_req,
     void* stream) {
   if (H < 1 || W < 1 || mi < 0 || mi > kMaxIters || n_smooth < 0 ||
-      n_smooth > kMaxSmooth || (long long)H * W > INT_MAX / 4)
+      n_smooth > kMaxSmooth || (long long)H * W > INT_MAX / 4 ||
+      g_outer == 0.0f || g_inner == 0.0f || g_centre == 0.0f)
     return (int)cudaErrorInvalidValue;
   int max_grid = 0;
   cudaError_t e = bilinear ? max_coresident<true>(n_smooth, &max_grid)
                            : max_coresident<false>(n_smooth, &max_grid);
   if (e != cudaSuccess) return (int)e;
-  const int ntiles = ((W + kDirBX - 1) / kDirBX) * ((H + kDirBY - 1) / kDirBY);
+  const int ntiles = ((W + kTW - 1) / kTW) * ((H + kTH - 1) / kTH);
   const int grid = grid_req > 0 ? grid_req
                                 : (ntiles < max_grid ? ntiles : max_grid);
   if (grid < 1 || grid > max_grid)
@@ -443,7 +401,7 @@ UGSM_API int ugsm_level_resident(
   void* args[] = {&a};
   const void* fn = bilinear ? (const void*)level_kernel<true>
                             : (const void*)level_kernel<false>;
-  e = cudaLaunchCooperativeKernel(fn, dim3(grid), dim3(kDirBX, kDirBY), args,
+  e = cudaLaunchCooperativeKernel(fn, dim3(grid), dim3(kTW, kTH), args,
                                   window_bytes(n_smooth), s);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();

@@ -78,10 +78,10 @@ UGSM_API int ugsm_smooth_average(const float* state, float* out, float* tmp_a,
     src = dst;
   }
   if (whole) {
-    ugsm::launch_sep5(src, out, 3, H, W, /*clamp=*/1, /*square=*/0, taps, s);
+    ugsm::launch_sep5(src, out, 3, H, W, /*clamp=*/1, taps, s);
   } else {
     ugsm::launch_sep5_band(src, out, 3, H, W, g.in_row0, g.in_rows, row0, Hl,
-                           Hl, /*square=*/0, taps, s);
+                           Hl, taps, s);
   }
   return (int)cudaGetLastError();
 }

@@ -48,49 +48,70 @@ struct LdL2 {
 };
 
 // ------------------------------------------------------------------ warp
-// out[c, p] = img[c] sampled at (x + 0.5 + dh, r + 0.5 + dv), clamp
-// addressing, for the (C, H, W) source img and output planes of
-// `out_plane` floats: r is the global row, p the output offset (the two
-// differ for a shard's rows of the image).  Nearest: point sampling,
-// floor of the coordinate.
-// Bilinear: four taps in the convention of CUDA's texture linear filter
-// (weights from coord - 0.5), but with the weights computed in float32
-// instead of the texture unit's 9-bit fixed point, in tex_gather's term
-// order
-// (top = v00*(1-ax) + v01*ax, bot = v10*(1-ax) + v11*ax,
-//  out = top*(1-ay) + bot*ay).  fmaxf maps NaN to 0, so no field can
-// address outside the plane.
-template <bool BILINEAR>
-__device__ __forceinline__ void warp_px(const float* __restrict__ img,
-                                        float* __restrict__ out, int C,
-                                        int H, int W, size_t out_plane,
-                                        size_t p, int r, int x, float dh,
-                                        float dv) {
-  const size_t plane = (size_t)H * W;
-  if (!BILINEAR) {
-    float fx = floorf(((float)x + 0.5f) + dh);
-    float fy = floorf(((float)r + 0.5f) + dv);
-    fx = fminf(fmaxf(fx, 0.0f), (float)(W - 1));
-    fy = fminf(fmaxf(fy, 0.0f), (float)(H - 1));
-    const size_t src = (size_t)(int)fy * W + (int)fx;
-    for (int c = 0; c < C; ++c) out[c * out_plane + p] = img[c * plane + src];
-    return;
-  }
+// The backward warp of a (C, H, W) source by a two-axis field at global
+// row r and column x, clamp addressing.  Nearest: point sampling, the
+// floor of (x + 0.5) + dh and (r + 0.5) + dv.  Bilinear: four taps in the
+// convention of CUDA's texture linear filter (weights from coord - 0.5),
+// but with the weights computed in float32 instead of the texture unit's
+// 9-bit fixed point, in tex_gather's term order (top = v00*(1-ax) +
+// v01*ax, bot = v10*(1-ax) + v11*ax, out = top*(1-ay) + bot*ay).  fmaxf
+// maps NaN to 0, so no field can address outside the plane.  Offsets are
+// 32-bit: callers keep C * H * W below 2^31.  warp.cu and level.cu both
+// warp through these, so the two routes round alike.
+
+// Offset in a plane of the nearest tap.
+__device__ __forceinline__ int nearest_tap(int H, int W, int r, int x,
+                                           float dh, float dv) {
+  float fx = floorf(((float)x + 0.5f) + dh);
+  float fy = floorf(((float)r + 0.5f) + dv);
+  fx = fminf(fmaxf(fx, 0.0f), (float)(W - 1));
+  fy = fminf(fmaxf(fy, 0.0f), (float)(H - 1));
+  return (int)fy * W + (int)fx;
+}
+
+struct BilinearTaps {
+  int p00, p01, p10, p11;  // offsets in a plane: (top, bottom) x (left, right)
+  float ax, ay;            // weights of the right and the bottom taps
+};
+
+__device__ __forceinline__ BilinearTaps bilinear_taps(int H, int W, int r,
+                                                      int x, float dh,
+                                                      float dv) {
   const float xf = (((float)x + 0.5f) + dh) - 0.5f;
   const float yf = (((float)r + 0.5f) + dv) - 0.5f;
   const float x0 = floorf(xf), y0 = floorf(yf);
-  const float ax = xf - x0, ay = yf - y0;
   const int ix0 = (int)fminf(fmaxf(x0, 0.0f), (float)(W - 1));
   const int ix1 = (int)fminf(fmaxf(x0 + 1.0f, 0.0f), (float)(W - 1));
-  const int iy0 = (int)fminf(fmaxf(y0, 0.0f), (float)(H - 1));
-  const int iy1 = (int)fminf(fmaxf(y0 + 1.0f, 0.0f), (float)(H - 1));
-  const size_t p00 = (size_t)iy0 * W + ix0, p01 = (size_t)iy0 * W + ix1;
-  const size_t p10 = (size_t)iy1 * W + ix0, p11 = (size_t)iy1 * W + ix1;
+  const int iy0 = (int)fminf(fmaxf(y0, 0.0f), (float)(H - 1)) * W;
+  const int iy1 = (int)fminf(fmaxf(y0 + 1.0f, 0.0f), (float)(H - 1)) * W;
+  return BilinearTaps{iy0 + ix0, iy0 + ix1, iy1 + ix0, iy1 + ix1, xf - x0,
+                      yf - y0};
+}
+
+__device__ __forceinline__ float bilinear_mix(float v00, float v01, float v10,
+                                              float v11, float ax, float ay) {
+  const float top = v00 * (1.0f - ax) + v01 * ax;
+  const float bot = v10 * (1.0f - ax) + v11 * ax;
+  return top * (1.0f - ay) + bot * ay;
+}
+
+// out[c * out_plane + p] = the warp of img's channel c at (r, x), c < C.
+template <bool BILINEAR>
+__device__ __forceinline__ void warp_px(const float* __restrict__ img,
+                                        float* __restrict__ out, int C,
+                                        int H, int W, int out_plane, int p,
+                                        int r, int x, float dh, float dv) {
+  const int plane = H * W;
+  if (!BILINEAR) {
+    const int src = nearest_tap(H, W, r, x, dh, dv);
+    for (int c = 0; c < C; ++c) out[c * out_plane + p] = img[c * plane + src];
+    return;
+  }
+  const BilinearTaps t = bilinear_taps(H, W, r, x, dh, dv);
   for (int c = 0; c < C; ++c) {
     const float* __restrict__ s = img + c * plane;
-    const float top = s[p00] * (1.0f - ax) + s[p01] * ax;
-    const float bot = s[p10] * (1.0f - ax) + s[p11] * ax;
-    out[c * out_plane + p] = top * (1.0f - ay) + bot * ay;
+    out[c * out_plane + p] =
+        bilinear_mix(s[t.p00], s[t.p01], s[t.p10], s[t.p11], t.ax, t.ay);
   }
 }
 
@@ -220,16 +241,14 @@ __device__ __forceinline__ void smooth_px_window(const float* in, float* out,
 }
 
 // ---------------------------------------------------------- direction
-constexpr int kDirBX = 32;  // tile width = threads in x
-constexpr int kDirBY = 16;  // tile height = threads in y
-
-// MOVES (dx, dy) of config.py: left, right, up, down, centre.
-__device__ __forceinline__ int move_dx(int m) {
-  return m == 0 ? -1 : (m == 1 ? 1 : 0);
-}
-__device__ __forceinline__ int move_dy(int m) {
-  return m == 2 ? -1 : (m == 3 ? 1 : 0);
-}
+// The fused correlate -> parabola -> update step over one output tile
+// (direction.cu, and phase A of level.cu).  For each channel and move d
+// of MOVES (left, right, up, down, centre):
+//   corr_d = clip(G0(L * W(x+d))^2 / (G(L^2) * Gc(W^2)(x+d)), 0, 1),
+// G0 the zero-boundary blur of the cross product (zero outside the
+// image), Gc(W^2) the clamp-boundary blur of the squared warped image
+// read at the clamped shifted pixel; the channel mean, two parabola fits,
+// the disparity update and the confidence blend (or replace).
 
 struct DirConsts {
   float no_peak, aff_scale, aff_bias, w_new, w_old;
@@ -254,170 +273,298 @@ __device__ __forceinline__ void parabola(float l, float c, float r, float thr,
   conf = has_peak ? conf_in : k.no_peak;
 }
 
-// W, the warped right image, is staged over the tile +- 3 rows and
-// columns, clamped to the image; Gc(W^2) is read at the tile +- 1.
-constexpr int kWRows = kDirBY + 6;
-constexpr int kWCols = kDirBX + 6;
-using WRow = float[kWCols];
-
-// W and Gc(W^2) for direction_tile_with from planes in device memory
-// (the per-iteration kernels): W of channel c is staged into the shared
-// `ws`, Gc(W^2) read from bw2 at the shifted, clamped pixel.  BAND as in
-// direction_tile.
-template <class Ld, bool BAND>
-struct WarpedPlanes {
-  const float* warped;
-  const float* bw2;
-  WRow* ws;
-  RowBlock g;
-  int W;
-
-  __device__ __forceinline__ WRow* stage(int c, int grow0, int c0) const {
-    const int H = g.H;
-    const int in_row0 = BAND ? g.in_row0 : 0;
-    const int in_rows = BAND ? g.in_rows : H;
-    const float* wp = warped + c * ((size_t)in_rows * W);
-    for (int i = threadIdx.y; i < kWRows; i += kDirBY) {
-      const int rr = clampi(grow0 - 3 + i, 0, H - 1);
-      const int lr = BAND ? clampi(rr - in_row0, 0, in_rows - 1) : rr;
-      for (int j = threadIdx.x; j < kWCols; j += kDirBX) {
-        const int cc = clampi(c0 - 3 + j, 0, W - 1);
-        ws[i][j] = Ld::ld(wp + (size_t)lr * W + cc);
-      }
-    }
-    return ws;
-  }
-
-  // Gc(W^2) of channel c at (clamp(gr + dy), clamp(gc + dx)), gr global.
-  __device__ __forceinline__ float gw2(int c, int gr, int gc, int dy,
-                                       int dx) const {
-    const int H = g.H;
-    const int in_row0 = BAND ? g.in_row0 : 0;
-    const int in_rows = BAND ? g.in_rows : H;
-    const size_t q = (size_t)(clampi(gr + dy, 0, H - 1) - in_row0) * W +
-                     clampi(gc + dx, 0, W - 1);
-    return Ld::ld(bw2 + c * ((size_t)in_rows * W) + q);
-  }
+// A tile of kTH = NS * S output rows by TW columns, run by a (TW, NS)
+// thread block: thread (tx, ty) owns the S rows from tile row ty * S of
+// column tx.  The three channels of L, W and Gc(W^2) are staged in shared
+// memory once per tile (direction_stage_left, the caller's W,
+// direction_gw2); after that a thread computes its strip from shared
+// memory and registers, with no barrier (direction_update_tile).
+template <int TW, int NS, int S>
+struct DirTile {
+  static constexpr int kTW = TW, kTH = NS * S, kRows = S, kThreads = TW * NS;
+  static constexpr int LR = kTH + 4, LC = TW + 4;  // L: the tile +- 2
+  static constexpr int WR = kTH + 6, WC = TW + 6;  // W: the tile +- 3
+  static constexpr int GR = kTH + 2, GC = TW + 2;  // Gc(W^2): the tile +- 1
+  float l[3][LR][LC];  // L, zero outside the image
+  float w[3][WR][WC];  // W at the pixel clamped to the image
+  float g[3][GR][GC];  // Gc(W^2) at the pixel clamped to the image
 };
 
-// One 16 x 32 output tile (rows r0.., columns c0.. of the output planes)
-// of the fused correlate -> parabola -> update step, run by a (32, 16)
-// thread block.  Per channel, L (halo 2, zero outside the image) is
-// staged in shared memory and W (halo 3, clamped to the image) comes from
-// `wsrc` (stage(c, grow0, c0): the kWRows x kWCols tile of W, in shared
-// memory once the block has synchronised); each move's cross product is
-// built there, its row pass goes to a shared intermediate and its column
-// pass to registers.  wsrc.gw2 gives the clamp-blurred W^2 through the
-// clamped shift.  Ends with every shared read done, so a block may run
-// the next tile straight away.
-//
-// BAND (the row-sharded form): bl2, disp and out are the output planes
-// (g.out_rows rows from global row g.row0); left is a haloed plane
-// (g.in_rows rows from g.in_row0, at least 3 rows of halo).  Every
-// boundary resolves at global rows 0 and g.H - 1.  A tile row past the
-// output rows stages zeros or clamped rows where the band ends; only
-// that row's discarded result reads them.  Without BAND every plane is
-// the whole (3, g.H, W) image and the band terms fold away.  left and bl2
-// load through LdIn, disp through Ld.
-template <class Ld, bool BAND, class WSrc, class LdIn = Ld>
-__device__ __forceinline__ void direction_tile_with(
-    const float* left, const float* bl2, const float* disp, float* out,
-    const RowBlock& g, int W, int r0, int c0, float thr, bool replace,
-    const Taps5& taps, const DirConsts& k, const WSrc& wsrc) {
-  __shared__ float ls[kDirBY + 4][kDirBX + 4];  // L, rows/cols -2 .. +2
-  __shared__ float xs[kDirBY + 4][kDirBX + 4];  // cross product, 0 outside
-  __shared__ float rs[kDirBY + 4][kDirBX];      // row pass of xs
+__device__ __forceinline__ int block_tid() {
+  return threadIdx.y * blockDim.x + threadIdx.x;
+}
+
+// Start the cp.async copies of L (3 channels) over the tile +- 2 from
+// global row grow0, column c0: zero outside the image.  BAND: left holds
+// g.in_rows rows from global row g.in_row0 (a shard's haloed rows), and
+// a row outside them stages zero; only rows past the shard's output read
+// it.
+template <bool BAND, class Tile>
+__device__ __forceinline__ void direction_stage_left(Tile& t,
+                                                     const float* left,
+                                                     const RowBlock& g, int W,
+                                                     int grow0, int c0) {
+  constexpr int n = Tile::LR * Tile::LC;
   const int H = g.H;
   const int in_row0 = BAND ? g.in_row0 : 0;
   const int in_rows = BAND ? g.in_rows : H;
-  const int out_rows = BAND ? g.out_rows : H;
-  const int tx = threadIdx.x, ty = threadIdx.y;
-  const int gr = r0 + ty, gc = c0 + tx;
-  const int grow0 = BAND ? g.row0 + r0 : r0;  // global row of the tile
-  const bool valid = gr < out_rows && gc < W;
-  const size_t plane = (size_t)out_rows * W;
   const size_t hplane = (size_t)in_rows * W;
-  const size_t p = (size_t)gr * W + gc;
-  float dirs[5] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
-
-  for (int c = 0; c < 3; ++c) {
-    const float* lp = left + c * hplane;
-    for (int i = ty; i < kDirBY + 4; i += kDirBY) {
-      const int rr = grow0 - 2 + i;
-      const int lr = rr - in_row0;
-      for (int j = tx; j < kDirBX + 4; j += kDirBX) {
-        const int cc = c0 - 2 + j;
-        const bool inside = rr >= 0 && rr < H && cc >= 0 && cc < W &&
-                            (!BAND || (lr >= 0 && lr < in_rows));
-        ls[i][j] = inside ? LdIn::ld(lp + (size_t)lr * W + cc) : 0.0f;
-      }
-    }
-    WRow* ws = wsrc.stage(c, grow0, c0);
-    __syncthreads();
-
-#pragma unroll
-    for (int m = 0; m < 5; ++m) {
-      const int dx = move_dx(m), dy = move_dy(m);
-      // cross = L * shift_image(W, dx, dy) inside the image, 0 outside
-      // (the zero boundary of the cross-product blur).
-      for (int i = ty; i < kDirBY + 4; i += kDirBY) {
-        const int rr = grow0 - 2 + i;
-        for (int j = tx; j < kDirBX + 4; j += kDirBX) {
-          const int cc = c0 - 2 + j;
-          const bool inside = rr >= 0 && rr < H && cc >= 0 && cc < W;
-          xs[i][j] = inside ? ls[i][j] * ws[i + 1 + dy][j + 1 + dx] : 0.0f;
-        }
-      }
-      __syncthreads();
-      for (int i = ty; i < kDirBY + 4; i += kDirBY) {
-        rs[i][tx] = pass5(taps, xs[i][tx], xs[i][tx + 1], xs[i][tx + 2],
-                          xs[i][tx + 3], xs[i][tx + 4]);
-      }
-      __syncthreads();
-      if (valid) {
-        const float bc = pass5(taps, rs[ty][tx], rs[ty + 1][tx],
-                               rs[ty + 2][tx], rs[ty + 3][tx],
-                               rs[ty + 4][tx]);
-        const float num = bc * bc;
-        const float den = LdIn::ld(bl2 + c * plane + p) *
-                          wsrc.gw2(c, grow0 + ty, gc, dy, dx);
-        float ratio = num / den;
-        if (ratio > 1.0f) ratio = 1.0f;  // NaN passes through, as in
-        if (ratio < 0.0f) ratio = 0.0f;  // correlation_ratio
-        dirs[m] = c == 0 ? ratio : dirs[m] + ratio;
-      }
-    }
-    __syncthreads();  // every read of ls/ws done before the next channel
+  for (int i = block_tid(); i < 3 * n; i += Tile::kThreads) {
+    const int c = i / n, q = i - c * n;
+    const int row = q / Tile::LC, col = q - row * Tile::LC;
+    const int rr = grow0 - 2 + row, lr = rr - in_row0, cc = c0 - 2 + col;
+    const bool inside = rr >= 0 && rr < H && cc >= 0 && cc < W &&
+                        (!BAND || (lr >= 0 && lr < in_rows));
+    cp_async4(&t.l[0][0][0] + i,
+              inside ? left + c * hplane + (size_t)lr * W + cc : left,
+              inside);
   }
-  if (!valid) return;
-
-  float d[5];
-#pragma unroll
-  for (int m = 0; m < 5; ++m) d[m] = dirs[m] * (1.0f / 3.0f);
-  float inc_h, conf_h, inc_v, conf_v;
-  parabola(d[0], d[4], d[1], thr, k, inc_h, conf_h);
-  parabola(d[2], d[4], d[3], thr, k, inc_v, conf_v);
-  const float conf_new = conf_h * conf_v;
-  out[p] = inc_h + Ld::ld(disp + p);
-  out[plane + p] = inc_v + Ld::ld(disp + plane + p);
-  float blended = k.w_new * conf_new + k.w_old * Ld::ld(disp + 2 * plane + p);
-  if (blended > 1.0f) blended = 1.0f;
-  if (blended < 0.0f) blended = 0.0f;
-  out[2 * plane + p] = replace ? conf_new : blended;
 }
 
-// The tile of direction_tile_with with W staged from the warped planes and
-// Gc(W^2) read from bw2 (both haloed planes under BAND).
-template <class Ld, bool BAND = false>
-__device__ __forceinline__ void direction_tile(
-    const float* left, const float* warped, const float* bl2,
-    const float* bw2, const float* disp, float* out, const RowBlock& g,
-    int W, int r0, int c0, float thr, bool replace, const Taps5& taps,
-    const DirConsts& k) {
-  __shared__ float ws[kWRows][kWCols];  // W clamped, -3 .. +3
-  direction_tile_with<Ld, BAND>(left, bl2, disp, out, g, W, r0, c0, thr,
-                                replace, taps, k,
-                                WarpedPlanes<Ld, BAND>{warped, bw2, ws, g, W});
+// Start the cp.async copies of W (3 channels of `warped`, planes as left's
+// in direction_stage_left) over the tile +- 3, at the pixel clamped to
+// the image (and, under BAND, to the band's rows; only rows past the
+// shard's output read a row clamped to the band).
+template <bool BAND, class Tile>
+__device__ __forceinline__ void direction_stage_warped(Tile& t,
+                                                       const float* warped,
+                                                       const RowBlock& g,
+                                                       int W, int grow0,
+                                                       int c0) {
+  constexpr int n = Tile::WR * Tile::WC;
+  const int H = g.H;
+  const int in_row0 = BAND ? g.in_row0 : 0;
+  const int in_rows = BAND ? g.in_rows : H;
+  const size_t hplane = (size_t)in_rows * W;
+  for (int i = block_tid(); i < 3 * n; i += Tile::kThreads) {
+    const int c = i / n, q = i - c * n;
+    const int row = q / Tile::WC, col = q - row * Tile::WC;
+    const int rr = clampi(grow0 - 3 + row, 0, H - 1);
+    const int lr = BAND ? clampi(rr - in_row0, 0, in_rows - 1) : rr;
+    const int cc = clampi(c0 - 3 + col, 0, W - 1);
+    cp_async4(&t.w[0][0][0] + i, warped + c * hplane + (size_t)lr * W + cc,
+              true);
+  }
+}
+
+// Gc(W^2) of the 3 channels over the tile +- 1, at the pixels clamped to
+// the H x W image, from the staged W: the row pass of W^2 at the G
+// columns over all of W's rows into `rows` (RC channels at a time: RC *
+// WR * GC floats of shared memory), then the column pass into t.g.  Each
+// value rounds as the blur kernel rounds it (the clamped neighbours, row
+// pass first), and every clamped neighbour lies in the staged W.  Where
+// the tile +- 3 lies inside the image (not EDGE) no index clamps.
+template <int RC, bool EDGE, class Tile>
+__device__ __forceinline__ void gw2_passes(Tile& t, float* rows, int H,
+                                           int W, int grow0, int c0,
+                                           const Taps5& tp) {
+  constexpr int WR = Tile::WR, WC = Tile::WC, GR = Tile::GR, GC = Tile::GC;
+  const int tid = block_tid();
+  for (int cb = 0; cb < 3; cb += RC) {
+    for (int i = tid; i < RC * WR * GC; i += Tile::kThreads) {
+      const int cr = i / GC, j = i - cr * GC;  // cr: channel * WR + W row
+      const float* wrow = &t.w[cb][0][0] + cr * WC;
+      const int cc = clampi(c0 - 1 + j, 0, W - 1);
+      float v[5];
+#pragma unroll
+      for (int d = 0; d < 5; ++d) {
+        // staged column j + d is image column c0 - 3 + j + d
+        const float x =
+            EDGE ? wrow[clampi(cc + d - 2, 0, W - 1) - (c0 - 3)] : wrow[j + d];
+        v[d] = x * x;
+      }
+      rows[i] = pass5_all(tp, v[0], v[1], v[2], v[3], v[4]);
+    }
+    __syncthreads();
+    for (int i = tid; i < RC * GR * GC; i += Tile::kThreads) {
+      const int cg = i / GC, j = i - cg * GC;  // cg: channel * GR + G row
+      const int cl = cg / GR, gi = cg - cl * GR;
+      const int rr = clampi(grow0 - 1 + gi, 0, H - 1);
+      const float* col = rows + cl * WR * GC + j;
+      float v[5];
+#pragma unroll
+      for (int d = 0; d < 5; ++d) {
+        // row-pass row gi + d is image row grow0 - 3 + gi + d
+        v[d] = EDGE ? col[(clampi(rr + d - 2, 0, H - 1) - (grow0 - 3)) * GC]
+                    : col[(gi + d) * GC];
+      }
+      (&t.g[cb][0][0])[i] = pass5_all(tp, v[0], v[1], v[2], v[3], v[4]);
+    }
+    __syncthreads();
+  }
+}
+
+// Gc(W^2) of the tile at global row grow0, column c0 into t.g (see
+// gw2_passes).  Call after W is staged and the block has synchronised;
+// ends synchronised.
+template <int RC, class Tile>
+__device__ __forceinline__ void direction_gw2(Tile& t, float* rows, int H,
+                                              int W, int grow0, int c0,
+                                              const Taps5& tp) {
+  if (grow0 < 3 || grow0 + Tile::kTH + 3 > H || c0 < 3 ||
+      c0 + Tile::kTW + 3 > W) {
+    gw2_passes<RC, true>(t, rows, H, W, grow0, c0, tp);
+  } else {
+    gw2_passes<RC, false>(t, rows, H, W, grow0, c0, tp);
+  }
+}
+
+// The row pass of one move's cross product at a row: L (columns x - 2 ..
+// x + 2) times W at columns OFF - 3 .. OFF + 1 relative to x, zero where
+// the L pixel lies outside the image (EDGE tiles only: elsewhere every
+// pixel is inside).
+template <bool EDGE, int OFF>
+__device__ __forceinline__ float cross_pass(const Taps5& tp,
+                                            const float (&lv)[5],
+                                            const float (&wv)[7], bool rowok,
+                                            const bool (&colok)[5]) {
+  float x[5];
+#pragma unroll
+  for (int j = 0; j < 5; ++j) {
+    const float p = lv[j] * wv[j + OFF];
+    x[j] = (!EDGE || (rowok && colok[j])) ? p : 0.0f;
+  }
+  return pass5_all(tp, x[0], x[1], x[2], x[3], x[4]);
+}
+
+// One thread's S rows of the step, from the staged tile.  For each
+// channel the thread walks down its strip +- 2 rows: per row it reads L
+// (5 values) and the next row of W (7 values, the dx = -1 .. 1 shifts)
+// once, keeps three rows of W in registers (the dy = -1 .. 1 shifts),
+// computes the row pass of all five moves' cross products, and adds each
+// to the column passes of the (at most five) output rows it reaches, in
+// the column pass's term order.  An output row's column pass completes
+// after its fifth row: the ratio with G(L^2) (from bl2) and the staged
+// Gc(W^2), added to the channel sums.  Rows past out_rows and columns
+// past W compute on staged values and store nothing.
+template <class Ld, bool BAND, bool EDGE, class LdIn, class Tile>
+__device__ __forceinline__ void direction_strip(
+    const Tile& t, const float* bl2, const float* disp, float* out,
+    const RowBlock& g, int W, int r0, int c0, float thr, bool replace,
+    const Taps5& tp, const DirConsts& k) {
+  constexpr int S = Tile::kRows;
+  const int H = g.H;
+  const int out_rows = BAND ? g.out_rows : H;
+  const int grow0 = BAND ? g.row0 + r0 : r0;  // global row of the tile
+  const int tx = threadIdx.x, rs = threadIdx.y * S;
+  const int x = c0 + tx;
+  const size_t plane = (size_t)out_rows * W;
+  bool colok[5];
+#pragma unroll
+  for (int j = 0; j < 5; ++j) colok[j] = x + j - 2 >= 0 && x + j - 2 < W;
+  float acc[S][5] = {};  // the channel sums
+
+  for (int c = 0; c < 3; ++c) {
+    const float(*lc)[Tile::LC] = t.l[c];
+    const float(*wc)[Tile::WC] = t.w[c];
+    const float(*gc)[Tile::GC] = t.g[c];
+    float b2[S];
+#pragma unroll
+    for (int o = 0; o < S; ++o) {
+      const int r = r0 + rs + o;
+      b2[o] = r < out_rows && x < W
+                  ? LdIn::ld(bl2 + c * plane + (size_t)r * W + x)
+                  : 1.0f;
+    }
+    // W rows q - 1, q and q + 1 of tile row q, columns x - 3 .. x + 3
+    float wm[7], w0[7], wp[7];
+#pragma unroll
+    for (int j = 0; j < 7; ++j) {
+      wm[j] = wc[rs][tx + j];
+      w0[j] = wc[rs + 1][tx + j];
+    }
+    float col[S][5];
+#pragma unroll
+    for (int i = 0; i < S + 4; ++i) {  // tile row rs - 2 + i
+      float lv[5];
+#pragma unroll
+      for (int j = 0; j < 5; ++j) lv[j] = lc[rs + i][tx + j];
+#pragma unroll
+      for (int j = 0; j < 7; ++j) wp[j] = wc[rs + i + 2][tx + j];
+      const int gr = grow0 + rs - 2 + i;
+      const bool rowok = gr >= 0 && gr < H;
+      float rp[5];
+      rp[0] = cross_pass<EDGE, 0>(tp, lv, w0, rowok, colok);  // left
+      rp[1] = cross_pass<EDGE, 2>(tp, lv, w0, rowok, colok);  // right
+      rp[2] = cross_pass<EDGE, 1>(tp, lv, wm, rowok, colok);  // up
+      rp[3] = cross_pass<EDGE, 1>(tp, lv, wp, rowok, colok);  // down
+      rp[4] = cross_pass<EDGE, 1>(tp, lv, w0, rowok, colok);  // centre
+#pragma unroll
+      for (int o = 0; o < S; ++o) {
+        const int d = i - o;  // this row is output row o's offset d - 2
+        if (d < 0 || d > 4) continue;
+#pragma unroll
+        for (int m = 0; m < 5; ++m) {
+          col[o][m] = d == 0 ? tp.t[4] * rp[m]
+                             : col[o][m] + tp.t[4 - d] * rp[m];
+        }
+        if (d < 4) continue;
+        // Gc(W^2) at the clamped shifted pixel of output row o, by move
+        const float* gq = &gc[rs + o + 1][tx + 1];
+        const float gv[5] = {gq[-1], gq[1], gq[-Tile::GC], gq[Tile::GC],
+                             gq[0]};
+#pragma unroll
+        for (int m = 0; m < 5; ++m) {
+          const float num = col[o][m] * col[o][m];
+          const float den = b2[o] * gv[m];
+          float ratio = num / den;
+          if (ratio > 1.0f) ratio = 1.0f;  // NaN passes through, as in
+          if (ratio < 0.0f) ratio = 0.0f;  // correlation_ratio
+          acc[o][m] = c == 0 ? ratio : acc[o][m] + ratio;
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < 7; ++j) {
+        wm[j] = w0[j];
+        w0[j] = wp[j];
+      }
+    }
+  }
+
+#pragma unroll
+  for (int o = 0; o < S; ++o) {
+    const int r = r0 + rs + o;
+    if (r >= out_rows || x >= W) continue;
+    const size_t p = (size_t)r * W + x;
+    float d[5];
+#pragma unroll
+    for (int m = 0; m < 5; ++m) d[m] = acc[o][m] * (1.0f / 3.0f);
+    float inc_h, conf_h, inc_v, conf_v;
+    parabola(d[0], d[4], d[1], thr, k, inc_h, conf_h);
+    parabola(d[2], d[4], d[3], thr, k, inc_v, conf_v);
+    const float conf_new = conf_h * conf_v;
+    out[p] = inc_h + Ld::ld(disp + p);
+    out[plane + p] = inc_v + Ld::ld(disp + plane + p);
+    float blended =
+        k.w_new * conf_new + k.w_old * Ld::ld(disp + 2 * plane + p);
+    if (blended > 1.0f) blended = 1.0f;
+    if (blended < 0.0f) blended = 0.0f;
+    out[2 * plane + p] = replace ? conf_new : blended;
+  }
+}
+
+// The step over the output tile at (r0, c0) of the output planes, from
+// the staged tile t (after direction_gw2).  bl2, disp and out are the
+// output planes (under BAND g.out_rows rows from global row g.row0, else
+// the whole (3, g.H, W) image); bl2 loads through LdIn, disp through Ld.
+// A tile whose L window (the tile +- 2) lies inside the image takes the
+// form without the zero mask.  Reads only t, so the caller may restage
+// after a barrier.
+template <class Ld, bool BAND, class LdIn, class Tile>
+__device__ __forceinline__ void direction_update_tile(
+    const Tile& t, const float* bl2, const float* disp, float* out,
+    const RowBlock& g, int W, int r0, int c0, float thr, bool replace,
+    const Taps5& tp, const DirConsts& k) {
+  const int grow0 = BAND ? g.row0 + r0 : r0;
+  const bool edge = grow0 < 2 || grow0 + Tile::kTH + 2 > g.H || c0 < 2 ||
+                    c0 + Tile::kTW + 2 > W;
+  if (edge) {
+    direction_strip<Ld, BAND, true, LdIn>(t, bl2, disp, out, g, W, r0, c0,
+                                          thr, replace, tp, k);
+  } else {
+    direction_strip<Ld, BAND, false, LdIn>(t, bl2, disp, out, g, W, r0, c0,
+                                           thr, replace, tp, k);
+  }
 }
 
 }  // namespace ugsm

@@ -55,8 +55,8 @@ SIGNATURES = {
     "ugsm_resample_bilinear": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                _F, _I, _P],
     "ugsm_warp": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    "ugsm_direction_update": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                              _F, _I, _F, _F, _F, _F, _F, _F, _F, _F, _P],
+    "ugsm_direction_update": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
+                              _I, _F, _F, _F, _F, _F, _F, _F, _F, _P],
     "ugsm_smooth_average": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
                             _P],
     "ugsm_level_resident": [_P, _P, _P, _P, _P, _P, _PF, _I, _I, _I, _I,

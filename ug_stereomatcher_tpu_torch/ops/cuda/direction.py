@@ -2,13 +2,14 @@
 ``csrc/direction.cu``.
 
 Replaces ``fused_direction_update`` (ug_stereomatcher_tpu/ops/pallas/
-direction.py, ``pallas_call`` at :258).  Bound on the card by on-chip
-work: 15 separable 5x5 blurs of cross products per pixel against a few
-planes of memory traffic.  The kernel keeps every cross product, blur
-pass and correlation map in shared memory and registers (a 16 x 32 tile
-with halos of 2 and 3 per channel) and writes only the new state; the
-clamp-boundary blur of the squared warped image runs first, into a
-scratch plane, because the shifted read needs it at clamped neighbours.
+direction.py, ``pallas_call`` at :258).  Bound on the card by device
+memory (15 planes: L, W, G(L^2) and the state read, the state written),
+with about 440 float32 operations a pixel close behind.  One launch: a
+block stages L, W and (from W, in shared memory) the clamp blur of W^2
+for a 16 x 64 tile of all three channels, then each thread computes 4
+rows of one column from shared memory and registers, so no intermediate
+plane exists and the block meets at no barrier between moves or
+channels; only the new state is written.
 
 The plain version here is the JAX package's unfused scan path
 (match.direction_maps + parabola_fit + blend); the kernel follows its
@@ -146,12 +147,11 @@ def fused_direction_update(left: torch.Tensor, warped: torch.Tensor,
         return fused_direction_update_plain(left, warped, blurred_l2, disp,
                                             threshold, replace_conf, consts,
                                             row0, global_h)
-    bw2 = torch.empty_like(warped)
     out = torch.empty_like(disp)
     k = gaussian_kernel()
     launch("ugsm_direction_update",
            "direction" if row0 is None else "direction_row_halo", ptr(left),
-           ptr(warped), ptr(blurred_l2), ptr(disp), ptr(bw2), ptr(out),
+           ptr(warped), ptr(blurred_l2), ptr(disp), ptr(out),
            Hl if row0 is None else global_h, W, Hl, row0 or 0, halo,
            float(threshold), int(bool(replace_conf)), float(k[0]),
            float(k[1]), float(k[2]), *(float(c) for c in consts))

@@ -55,8 +55,9 @@ from ug_stereomatcher_tpu_torch.ops.cuda.warp import warp_plain
 MAX_ITERS = 256        # the threshold table travels in the launch arguments
 SCRATCH_PLANES = 6     # G(L^2) and the direction update
 # The phases block 0 of the kernel times (level.cu Phase): G(L^2); phase
-# A's warp, Gc(W^2), direction update and grid barrier; phase B's window
-# load, smoothing passes, average and grid barrier.
+# A's warp (with the staging of L), Gc(W^2), direction update and grid
+# barrier; phase B's window load, smoothing passes, average and grid
+# barrier.
 PHASES = ("prologue", "a_warp", "a_gw2", "a_direction", "a_barrier",
           "b_load", "b_passes", "b_average", "b_barrier")
 BAR_WORDS = 2 + len(PHASES)  # arrivals, barriers passed, cycles per phase

@@ -9,10 +9,12 @@ and the planner ``plan_dyn_warp`` and the tier logic of
 pixel is exact for every disparity field and needs no window, planner or
 fallback.  Bound on the card by device memory (two field planes and three
 gathered reads per pixel, three writes; the bilinear form's four taps
-are neighbours and come from cache).  Coordinates and bilinear weights
-are rounded in float32 exactly as the JAX gather rounds them (never the
-texture unit's 9-bit filter), so both forms are bit-exact against their
-plain versions.
+are neighbours and come from cache).  Each thread of a 32 x 8 block warps
+K pixels of a row, 32 columns apart, with every gather issued before any
+store; offsets are 32-bit, so an image of 2^31 floats or more raises.
+Coordinates and bilinear weights are rounded in float32 exactly as the
+JAX gather rounds them (never the texture unit's 9-bit filter), so both
+forms are bit-exact against their plain versions.
 
 The row-sharded form (``row0`` given; ``row_halo=True`` of both TPU
 kernels, warp.py:356-385 and :631-664) warps one shard's rows of the
@@ -35,6 +37,7 @@ from ug_stereomatcher_tpu_torch.ops.resample import warp_by_disparity
 COUNTERS = {"nearest": "warp", "bilinear": "warp_bilinear"}
 ROW_HALO_COUNTERS = {"nearest": "warp_row_halo",
                      "bilinear": "warp_bilinear_row_halo"}
+MAX_KERNEL_ELEMENTS = 2 ** 31  # the kernel's offsets are 32-bit
 
 
 def warp_plain(img: torch.Tensor, disp_x: torch.Tensor, disp_y: torch.Tensor,
@@ -76,6 +79,9 @@ def warp(img: torch.Tensor, disp_x: torch.Tensor, disp_y: torch.Tensor,
                          f"{tuple(disp_x.shape)} and {tuple(disp_y.shape)}")
     if check_planes("warp", img, disp_x, disp_y).type == "cpu":
         return warp_plain(img, disp_x, disp_y, method, row0)
+    if img.numel() >= MAX_KERNEL_ELEMENTS:
+        raise ValueError(f"warp: the kernel takes images of fewer than "
+                         f"2^31 floats, got {tuple(img.shape)}")
     out = torch.empty((C, Hl, W), dtype=img.dtype, device=img.device)
     counters = COUNTERS if row0 is None else ROW_HALO_COUNTERS
     launch("ugsm_warp", counters[method], ptr(img), ptr(disp_x), ptr(disp_y),
