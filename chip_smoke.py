@@ -13,7 +13,8 @@ Phases (any failure exits non-zero before the last line is printed):
    a random field and on a smooth one like the matcher's: the scene's
    3 px shift plus a sinusoid of a few pixels, from --seed), direction
    and smooth at the 16 MP level-0 shape and at pyramid level 8
-   (202 x 306), the row-sharded forms of warp (both methods and
+   (202 x 306; smooth also with 40 passes, several launches), the
+   row-sharded forms of warp (both methods and
    fields), direction and smooth on the middle (timed) and bottom shard
    of four at those levels (816 and 51 rows), and the level-resident
    kernel at levels 8 and 13 in both methods with replace_first on and
@@ -58,12 +59,14 @@ StereoEngine.match nearest and bilinear on the bench scene, warm (host
 clock around a synchronised call, median of ``--matches`` after one
 warm-up), each with the device's busy share of one profiled match; the
 whole-image blur, warp (nearest and bilinear, on the random and the
-smooth field), direction and smooth (n = 10) kernels at 16 MP and the
-row-sharded direction on the middle shard of four; the level-resident
-kernel at levels 8 and 13 (nearest, replace_first off) and the nearest
-and bilinear resample at the sqrt(2) subsample of six stacked 16 MP
-planes, each with cuda_ms.  It prints a JSON line per process, the
-nvidia-smi line and per tree the median, least and greatest of each:
+smooth field), direction and smooth (n = 0, 5 and 10) kernels at 16
+MP, the 6-plane zero-boundary blur of the stacked pyramid level, and
+the row-sharded direction and smooth (n = 10) on the middle shard of
+four; the level-resident kernel at levels 8 and 13 (nearest,
+replace_first off) and the nearest and bilinear resample at the sqrt(2)
+subsample of six stacked 16 MP planes, each with cuda_ms.  It prints a
+JSON line per process, the nvidia-smi line and per tree the median,
+least and greatest of each:
     python3 chip_smoke.py --ab parent=_smoke_checkout/parent --ab change=. \\
         [--rounds 2] [--matches 7] [--out FILE.json]
 
@@ -94,6 +97,7 @@ COARSE_LEVEL = 8           # 202 x 306 on the 16 MP chain
 SMALL_LEVEL = 13           # 34 x 53, the coarsest
 LOCKSTEP_LEVEL = 4         # 815 x 1231
 TABLE_LEVELS = range(4, 14)
+MANY_PASSES = 40           # more smoothing passes than one launch runs
 SEED = 0
 
 # Peak rates of one H100 SXM at its 700 W limit (NVIDIA's data sheet):
@@ -168,7 +172,10 @@ def expected_launches(cfg, h: int, w: int, resident_max_pixels=None) -> dict:
     n = cfg.num_levels(h, w)
     dims = cfg.dims_chain(h, w)[:n]
     resident = [i for i in range(n)
-                if uses_level_resident(*dims[i], resident_max_pixels)]
+                if uses_level_resident(*dims[i], resident_max_pixels,
+                                       cfg.smooth_passes_for_level(i),
+                                       cfg.iters_for_level(i), cfg.interp,
+                                       torch.device("cuda"))]
     iters = sum(cfg.iters_for_level(i) for i in range(n) if i not in resident)
     pyramid_blurs = (1 + max(0, n - 3)) if n > 1 else 0
     upsamples = (n - 1) * (1 if cfg.scale_conf_on_upsample else 2)
@@ -216,7 +223,9 @@ def expected_mesh_launches(cfg, h: int, w: int, devices) -> dict:
                          "smooth_row_halo"):
                 add(name, it * shards)
             add("blur", shards)
-        elif uses_level_resident(*dims[i]):
+        elif uses_level_resident(*dims[i], None,
+                                 cfg.smooth_passes_for_level(i), it,
+                                 cfg.interp, torch.device("cuda")):
             add("level", copies)
         else:
             for name in (f"warp{form}", "direction", "smooth"):
@@ -436,6 +445,12 @@ def check_kernels(dev, cfg, report: dict) -> None:
                 smooth.fused_smooth_average_plain, (state, smooth_n),
                 work=(6 * hw * 4.0,
                       (SMOOTH_PASS_OPS * smooth_n + AVERAGE_OPS) * hw))
+        if level == COARSE_LEVEL:
+            # more passes than one launch runs: chunks through scratch
+            compare(report, "smooth", f"{tag}-n{MANY_PASSES}",
+                    smooth.fused_smooth_average,
+                    smooth.fused_smooth_average_plain, (state, MANY_PASSES),
+                    timed=False)
         check_row_halo(report, tag, left, warped, bl2, state, dh, dv,
                        smooth_n, cfg.conf_consts)
         del left, warped, bl2, state, stacked, up_src, dh, dv, sq, sh, sv
@@ -491,6 +506,13 @@ def check_row_halo(report: dict, tag: str, left, warped, bl2, state, dh, dv,
                 work=((3 * (hl + 2 * s) + 3 * hl) * w * 4.0,
                       (SMOOTH_PASS_OPS * smooth_n + AVERAGE_OPS) * px),
                 timed=timed)
+        if tag == "coarse":
+            s = smooth.smooth_halo_rows(MANY_PASSES)
+            compare(report, "smooth_row_halo", f"{sub}-n{MANY_PASSES}",
+                    smooth.fused_smooth_average,
+                    smooth.fused_smooth_average_plain,
+                    (band(state, a - s, b + s), MANY_PASSES, a, h),
+                    timed=False)
 
 
 def level_inputs(dev, h: int, w: int):
@@ -686,6 +708,10 @@ def profile_match(call, warm_s: float, label: str) -> dict:
     for r in rows[:12]:
         print(f"{label} profile {r['device_ms']:10.3f} ms {r['calls']:6d}x "
               f"{r['name']}")
+    for r in rows:  # the smoothing kernels, wherever they rank
+        if "smooth" in r["name"]:
+            print(f"{label} profile smoothing {r['device_ms']:.3f} ms "
+                  f"{r['calls']}x {r['name']}")
     return {"device_busy_ms": busy_ms, "warm_latency_s": warm_s,
             "busy_share": busy_ms / (warm_s * 1e3), "kernels": rows}
 
@@ -863,9 +889,10 @@ KERNELS = {
 
 AB_TIMES = ("match_warm_median_s", "match_busy_share",
             "bilinear_match_warm_median_s", "bilinear_match_busy_share",
-            "blur_ms", "warp_ms", "warp_bilinear_ms", "warp_smooth_ms",
-            "warp_bilinear_smooth_ms", "direction_ms", "direction_row_halo_ms",
-            "smooth_ms", "level8_ms", "level13_ms", "resample_ms",
+            "blur_ms", "blur_zero6_ms", "warp_ms", "warp_bilinear_ms",
+            "warp_smooth_ms", "warp_bilinear_smooth_ms", "direction_ms",
+            "direction_row_halo_ms", "smooth0_ms", "smooth5_ms", "smooth_ms",
+            "smooth_row_halo_ms", "level8_ms", "level13_ms", "resample_ms",
             "resample_bilinear_ms")
 
 
@@ -921,6 +948,8 @@ def ab_child(tree: str, matches: int) -> dict:
     band_img = img[:, a - d:b + d].contiguous()
     band_other = other[:, a - d:b + d].contiguous()
     band_bl2, band_state = (x[:, a:b].contiguous() for x in (bl2, state))
+    s = smooth.smooth_halo_rows(10)
+    smooth_band = state[:, a - s:b + s].contiguous()
     times.update({
         "blur_ms": cuda_ms(lambda: blur.fused_blur_gaussian(img, "clamp")),
         "warp_ms": cuda_ms(lambda: warp.warp(img, dh, dv)),
@@ -935,10 +964,14 @@ def ab_child(tree: str, matches: int) -> dict:
             lambda: direction.fused_direction_update(
                 band_img, band_other, band_bl2, band_state, 1.0, False,
                 row0=a, global_h=H)),
+        "smooth0_ms": cuda_ms(lambda: smooth.fused_smooth_average(state, 0)),
+        "smooth5_ms": cuda_ms(lambda: smooth.fused_smooth_average(state, 5)),
         "smooth_ms": cuda_ms(lambda: smooth.fused_smooth_average(state, 10)),
+        "smooth_row_halo_ms": cuda_ms(lambda: smooth.fused_smooth_average(
+            smooth_band, 10, row0=a, global_h=H)),
     })
     del img, other, bl2, state, dh, dv, sh, sv, band_img, band_other
-    del band_bl2, band_state
+    del band_bl2, band_state, smooth_band
 
     cfg = MatcherConfig()
     chain = cfg.dims_chain(H, W)
@@ -950,6 +983,8 @@ def ab_child(tree: str, matches: int) -> dict:
         times[f"level{lv}_ms"] = cuda_ms(
             lambda: level.level_resident_match(*args))
     stacked = rand(6, H, W, hi=255.0)
+    times["blur_zero6_ms"] = cuda_ms(
+        lambda: blur.fused_blur_gaussian(stacked, "zero"))
     (h1, w1) = chain[1]
 
     def coord_of(t):

@@ -52,11 +52,46 @@ def assert_same(kernel, plain, *args):
     assert torch.equal(out, ref), (out - ref).abs().max().item()
 
 
-@pytest.mark.parametrize("boundary,channels", [("zero", 6), ("clamp", 3)])
-def test_blur_bit_exact(cuda, boundary, channels):
-    x = rand(cuda, channels, 203, 307, hi=255.0)
+# The blur's warps own 128-column strips and runs of 16-64 rows: shapes
+# below the 5-tap stencil, W at every residue mod 4 (16-byte rows only
+# where W % 4 == 0), one strip, several strips with a partial one, and
+# runs with interior strips.
+BLUR_SHAPES = [(1, 1), (2, 3), (4, 4), (3, 130), (203, 307), (40, 128),
+               (67, 129), (33, 258), (130, 515), (300, 700)]
+
+
+@pytest.mark.parametrize("h,w", BLUR_SHAPES)
+@pytest.mark.parametrize("channels", [1, 3, 6])
+@pytest.mark.parametrize("boundary", ["zero", "clamp"])
+def test_blur_bit_exact(cuda, boundary, channels, h, w):
+    x = rand(cuda, channels, h, w, hi=255.0)
     assert_same(blur.fused_blur_gaussian, blur.fused_blur_gaussian_plain, x,
                 boundary)
+
+
+@pytest.mark.parametrize("w", [128, 131])
+@pytest.mark.parametrize("boundary", ["zero", "clamp"])
+def test_blur_unaligned_start_bit_exact(cuda, boundary, w):
+    """A contiguous input one float into its storage: no 16-byte loads."""
+    buf = rand(cuda, 3 * 37 * w + 1, hi=255.0)
+    x = buf[1:].view(3, 37, w)
+    assert x.is_contiguous() and x.data_ptr() % 16 != 0
+    assert_same(blur.fused_blur_gaussian, blur.fused_blur_gaussian_plain, x,
+                boundary)
+
+
+@pytest.mark.parametrize("rows", [61, 150])
+@pytest.mark.parametrize("boundary", ["zero", "clamp"])
+def test_blur_band_equals_rows_of_whole(cuda, boundary, rows):
+    """The sharded blur (the whole-image kernel on each shard's rows with 2
+    halo rows) against the rows of the whole image's blur."""
+    x = rand(cuda, 3, rows, COLS, hi=255.0, seed=7)
+    mesh = par.make_mesh(1, 4, devices=[cuda] * 4)
+    out = par.sharded_blur(x, boundary, mesh, min_rows_per_shard=1)
+    assert len(out.shards) == 4
+    whole = blur.fused_blur_gaussian(x, boundary)
+    assert torch.equal(out.gather(cuda), whole)
+    assert torch.equal(whole, blur.fused_blur_gaussian_plain(x, boundary))
 
 
 RESAMPLE_CASES = {
@@ -234,11 +269,57 @@ def test_direction_bit_exact(cuda, threshold, replace, h, w):
                 disp, threshold, replace, CONSTS)
 
 
-@pytest.mark.parametrize("n", [0, 5, 10])
-def test_smooth_bit_exact(cuda, n):
-    st = rand(cuda, 3, 70, 133, lo=0.05, hi=1.05, seed=6)
+def passes(n):
+    """n as a count or in terms of the kernel's passes per launch K."""
+    k = smooth.max_chunk()
+    return {"K": k, "K+1": k + 1, "2K+3": 2 * k + 3}.get(n, n)
+
+
+SMOOTH_PASSES = [0, 1, 5, 10, "K", "K+1", "2K+3"]
+# The tile is 64 x 64 with a halo of up to K + 1: one row or column, two,
+# below the halo, one tile, one past a tile edge each way, and several
+# tiles with a partial one each way.
+SMOOTH_SHAPES = [(1, 1), (1, 70), (70, 1), (2, 2), (7, 9), (33, 65),
+                 (64, 64), (65, 65), (70, 133), (97, 200), (150, 260)]
+
+
+@pytest.mark.parametrize("h,w", SMOOTH_SHAPES)
+@pytest.mark.parametrize("n", SMOOTH_PASSES)
+def test_smooth_bit_exact(cuda, n, h, w):
+    st = rand(cuda, 3, h, w, lo=0.05, hi=1.05, seed=6)
     assert_same(smooth.fused_smooth_average,
-                smooth.fused_smooth_average_plain, st, n)
+                smooth.fused_smooth_average_plain, st, passes(n))
+
+
+def test_smooth_bit_exact_over_wide_magnitudes(cuda):
+    """Confidences and values over twelve decades, zeros and a row of
+    tiny confidences: every division of a pass, in and out of the range
+    of the kernel's short division, rounds as IEEE division does."""
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    h, w = 300, 500
+    mag = 10.0 ** (12.0 * torch.rand(3, h, w, generator=gen,
+                                     device=cuda) - 6.0)
+    sign = torch.where(torch.rand(3, h, w, generator=gen, device=cuda)
+                       < 0.5, -1.0, 1.0)
+    st = mag * sign
+    st[2] = st[2].abs()
+    st[:, 7] = 0.0
+    st[2, 11] = 1e-30
+    assert_same(smooth.fused_smooth_average,
+                smooth.fused_smooth_average_plain, st, 1)
+    assert_same(smooth.fused_smooth_average,
+                smooth.fused_smooth_average_plain, st, 4)
+
+
+def test_smooth_one_launch_up_to_k_passes(cuda):
+    st = rand(cuda, 3, 40, 70, lo=0.05, hi=1.05, seed=6)
+    k = smooth.max_chunk()
+    assert k >= 10  # the default configs' 5 and 10 passes: one launch
+    _build.reset_launch_counts()
+    smooth.fused_smooth_average(st, k)
+    smooth.fused_smooth_average(st, 2 * k + 3)
+    torch.cuda.synchronize()
+    assert _build.launch_counts() == {"smooth": 2}
 
 
 def test_each_wrapper_counts_one_launch_per_call(cuda):
@@ -321,13 +402,17 @@ def test_direction_row_halo_bit_exact(cuda, shard, rows):
     assert torch.equal(direction.fused_direction_update(*args), whole[:, a:b])
 
 
+@pytest.mark.parametrize("rows", [ROWS, 30])
 @pytest.mark.parametrize("shard", sorted(SHARDS))
-@pytest.mark.parametrize("n", [0, 5, 10])
-def test_smooth_row_halo_bit_exact(cuda, n, shard):
-    a, b = par.row_splits(ROWS, 4)[SHARDS[shard]]
+@pytest.mark.parametrize("n", [0, 1, 5, 10, "K+1", "2K+3"])
+def test_smooth_row_halo_bit_exact(cuda, n, shard, rows):
+    """Shards of 16 or 13 rows (61) and of 8 or 6 (30): from 10 passes on
+    a shard is shorter than its halo."""
+    n = passes(n)
+    a, b = par.row_splits(rows, 4)[SHARDS[shard]]
     h = smooth.smooth_halo_rows(n)
-    st = rand(cuda, 3, ROWS, COLS, lo=0.05, hi=1.05, seed=6)
-    args = (band(st, a - h, b + h), n, a, ROWS)
+    st = rand(cuda, 3, rows, COLS, lo=0.05, hi=1.05, seed=6)
+    args = (band(st, a - h, b + h), n, a, rows)
     assert_same(smooth.fused_smooth_average,
                 smooth.fused_smooth_average_plain, *args)
     whole = smooth.fused_smooth_average(st, n)
@@ -363,6 +448,23 @@ def test_sharded_level_on_card_equals_match_level(cuda, interp, h, w,
     out = par.sharded_match_level(left, right, state, level_index, cfg,
                                   replace, mesh)
     assert torch.equal(out.gather(cuda), ref)
+
+
+@pytest.mark.parametrize("interp", ["nearest", "bilinear"])
+def test_smoothing_beyond_level_kernel_runs_per_iteration(cuda, interp):
+    """More passes than the level kernel's window holds: match_level takes
+    the per-iteration route instead of raising, so its default gate and
+    resident_max_pixels=0 give the same bits, and the engine returns."""
+    cfg = MatcherConfig(interp=interp,
+                        smooth_passes=level.max_smooth_passes(interp) + 1)
+    left, right, state = _level_inputs(cuda, 34, 53)
+    gated = match_mod.match_level(left, right, state, 6, cfg, True)
+    per_iter = match_mod.match_level(left, right, state, 6, cfg, True,
+                                     resident_max_pixels=0)
+    assert torch.equal(gated, per_iter)
+    l_np, r_np = scene.make_pair(96, 136)
+    res = StereoEngine(cfg, device="cuda").match(l_np, r_np)
+    assert torch.isfinite(res.triplet).all()
 
 
 def test_match_batch_on_card_mesh_equals_match(cuda):

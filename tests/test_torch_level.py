@@ -99,6 +99,43 @@ def test_gate_admits_levels_8_to_13_at_16mp():
     assert not tmatch.uses_level_resident(*dims[8], resident_max_pixels=0)
 
 
+def test_gate_declines_schedules_beyond_the_level_kernel():
+    """More iterations than the kernel takes go per iteration on any
+    device; the smoothing-pass limit is the card's, asked only on one."""
+    assert tmatch.uses_level_resident(20, 31, None, 5, level.MAX_ITERS)
+    assert not tmatch.uses_level_resident(20, 31, None, 5,
+                                          level.MAX_ITERS + 1)
+    assert tmatch.uses_level_resident(20, 31, None, 10 ** 6, 22, "nearest",
+                                      torch.device("cpu"))
+    # the route the gate picks runs: no ValueError from the level op
+    cfg = MatcherConfig(level_cutoff=level.MAX_ITERS + 1)
+    left, right = (torch.from_numpy(a) for a in smooth_scene(6, 8, seed=5))
+    out = tmatch.match_level(left, right, torch.zeros(3, 6, 8), 7, cfg, True)
+    assert out.shape == (3, 6, 8) and torch.isfinite(out).all()
+
+
+def test_many_smoothing_passes_match_jax_per_iteration_chain():
+    """40 passes (beyond the level kernel's window on an H100) at a coarse
+    level, against the JAX package's per-iteration chain (level_backend
+    "xla"), two iterations; nearest, so the quantile rule."""
+    h, w = 32, 48
+    left, right = smooth_scene(h, w, seed=7)
+    jcfg = JaxConfig(smooth_passes=40, level_cutoff=2, level_backend="xla")
+    cfg = MatcherConfig.from_reference(dataclasses.asdict(jcfg))
+    level_index = 6
+    assert cfg.smooth_passes_for_level(level_index) == 40
+    assert cfg.iters_for_level(level_index) == 2
+    disp = np.zeros((3, h, w), np.float32)
+    disp[2] = 0.5
+    ref = np.asarray(jmatch.match_level(
+        jnp.asarray(left), jnp.asarray(right), jnp.asarray(disp),
+        level_index, jcfg, False))
+    out = tmatch.match_level(torch.from_numpy(left), torch.from_numpy(right),
+                             torch.from_numpy(disp), level_index, cfg,
+                             False).numpy()
+    assert_lockstep_close(out, ref)
+
+
 def test_level_resident_checks_arguments():
     x = torch.zeros(3, 8, 10)
     with pytest.raises(ValueError, match="state"):

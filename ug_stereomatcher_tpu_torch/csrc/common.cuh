@@ -33,25 +33,9 @@ __device__ __forceinline__ int clampi(int v, int lo, int hi) {
   return v < lo ? lo : (v > hi ? hi : v);
 }
 
-// One 5-tap pass over samples at offsets -2..2, in conv1d's term order.
-__device__ __forceinline__ float pass5(const Taps5& tp, float xm2, float xm1,
-                                       float x0, float xp1, float xp2) {
-  const float v[5] = {xm2, xm1, x0, xp1, xp2};
-  float acc = 0.0f;
-  bool first = true;
-#pragma unroll
-  for (int k = -2; k <= 2; ++k) {
-    const float w = tp.t[2 - k];
-    if (w == 0.0f) continue;
-    const float term = w * v[k + 2];
-    acc = first ? term : acc + term;
-    first = false;
-  }
-  return acc;
-}
-
-// pass5 for taps that are all nonzero (the Gaussian): the same terms in
-// the same order, without pass5's tests for zero taps.
+// One 5-tap pass over samples at offsets -2..2, in conv1d's term order,
+// for taps that are all nonzero (conv1d skips a zero tap; the Gaussian
+// has none).
 __device__ __forceinline__ float pass5_all(const Taps5& tp, float xm2,
                                            float xm1, float x0, float xp1,
                                            float xp2) {
@@ -77,21 +61,5 @@ __device__ __forceinline__ void cp_async4(float* smem, const float* gmem,
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
-
-// Separable 5-tap blur of C planes (H, W): row pass, then column pass,
-// zero (clamp == 0) or clamp boundary per pass.  Defined in blur.cu;
-// launches on `stream`, does not check errors.
-void launch_sep5(const float* x, float* out, int C, int H, int W, int clamp,
-                 Taps5 taps, cudaStream_t stream);
-
-// The clamp-boundary form for a band of the H-row image (a row shard):
-// x holds x_rows rows from global row x_row0; out_rows rows from global
-// row out_row0 are written to `out`, whose planes hold out_plane_rows
-// rows.  Rows clamp at the image's global edges, so each written row
-// equals the whole image's; x must hold every clamped row within 2 of
-// them.  Defined in blur.cu.
-void launch_sep5_band(const float* x, float* out, int C, int H, int W,
-                      int x_row0, int x_rows, int out_row0, int out_rows,
-                      int out_plane_rows, Taps5 taps, cudaStream_t stream);
 
 }  // namespace ugsm

@@ -198,25 +198,13 @@ __device__ __forceinline__ void phase_b(const LevelArgs& a, float* win,
   }
   __syncthreads();
   stamp(clk, kLoad);
-  for (int s = 1; s <= n; ++s) {
-    // the lines still exact after s passes
-    const int lo_r = ra > 0 ? ra + s : 0, hi_r = rb < H ? rb - s : H;
-    const int lo_c = ca > 0 ? ca + s : 0, hi_c = cb < W ? cb - s : W;
-    const int cw = hi_c - lo_c;
-    const float* in = win + ((s - 1) & 1) * 3 * wp;
-    float* out = win + (s & 1) * 3 * wp;
-    for (int i = tid; i < (hi_r - lo_r) * cw; i += kThreads) {
-      ugsm::smooth_px_window(in, out, wp, rw, ra, ca, H, W, lo_r + i / cw,
-                             lo_c + i % cw);
-    }
-    __syncthreads();
-  }
+  const float* fin = ugsm::smooth_window_passes(win, wp, ra, rb, ca, cb, H, W,
+                                                n);
   stamp(clk, kPasses);
-  const float* fin = win + (n & 1) * 3 * wp;
   const int r = r0 + threadIdx.y, x = c0 + threadIdx.x;
   if (r < H && x < W) {
     for (int c = 0; c < 3; ++c) {
-      a.state[c * plane + (size_t)r * W + x] = ugsm::sep5_clamp_at<false>(
+      a.state[c * plane + (size_t)r * W + x] = ugsm::sep5_clamp_at<false, 1>(
           ugsm::PlaneAt<LdPlain, int>{fin + c * wp, rw, ra, ca}, r, x, H, W,
           a.avg);
     }
@@ -254,7 +242,7 @@ __global__ void __launch_bounds__(kThreads, 2)
     const int x = (i % ntx) * kTW + threadIdx.x;
     if (r >= H || x >= W) continue;
     for (int c = 0; c < 3; ++c) {
-      a.bl2[c * plane + (size_t)r * W + x] = ugsm::sep5_clamp_at<true>(
+      a.bl2[c * plane + (size_t)r * W + x] = ugsm::sep5_clamp_at<true, 2>(
           ugsm::PlaneAt<ugsm::LdPlain>{a.left + c * plane, W, 0, 0}, r, x, H,
           W, a.gauss);
     }
@@ -364,7 +352,8 @@ UGSM_API int ugsm_level_resident(
     void* stream) {
   if (H < 1 || W < 1 || mi < 0 || mi > kMaxIters || n_smooth < 0 ||
       n_smooth > kMaxSmooth || (long long)H * W > INT_MAX / 4 ||
-      g_outer == 0.0f || g_inner == 0.0f || g_centre == 0.0f)
+      g_outer == 0.0f || g_inner == 0.0f || g_centre == 0.0f ||
+      avg_tap == 0.0f)
     return (int)cudaErrorInvalidValue;
   int max_grid = 0;
   cudaError_t e = bilinear ? max_coresident<true>(n_smooth, &max_grid)

@@ -131,113 +131,123 @@ struct PlaneAt {
 };
 
 // The clamp-boundary separable 5-tap blur of one plane at (r, c) of the
-// H x W image, with the five row-pass values the column pass needs
-// recomputed in place.  This rounds exactly like the two-pass tile of
-// blur.cu (row pass of the clamped rows, then the column pass), so no
-// intermediate plane and no barrier between the passes is needed.
-// SQUARE blurs x*x.  `at` must hold every clamped neighbour it is asked
-// for.
-template <bool SQUARE, class At>
+// H x W image, with the row-pass values the column pass needs recomputed
+// in place.  This rounds exactly like the separable blur (row pass of
+// the clamped rows, then the column pass; conv1d's term order), so no
+// intermediate plane and no barrier between the passes is needed.  The
+// taps within R of the centre must be nonzero and those beyond zero:
+// R = 2 for the Gaussian, R = 1 for the 3-tap average (conv1d skips zero
+// taps, so these terms are all of its terms).  SQUARE blurs x*x.  `at`
+// must hold every clamped neighbour it is asked for.
+template <bool SQUARE, int R, class At>
 __device__ __forceinline__ float sep5_clamp_at(const At& at, int r, int c,
                                                int H, int W,
                                                const Taps5& tp) {
-  float acc = 0.0f;
-  bool first = true;
+  static_assert(R == 1 || R == 2, "a 3- or 5-tap blur");
+  int cols[2 * R + 1];
 #pragma unroll
-  for (int k = -2; k <= 2; ++k) {
-    const float wk = tp.t[2 - k];
-    if (wk == 0.0f) continue;
+  for (int j = -R; j <= R; ++j) cols[j + R] = clampi(c + j, 0, W - 1);
+  float acc = 0.0f;
+#pragma unroll
+  for (int k = -R; k <= R; ++k) {
     const int rr = clampi(r + k, 0, H - 1);
     float racc = 0.0f;
-    bool rfirst = true;
 #pragma unroll
-    for (int j = -2; j <= 2; ++j) {
-      const float wj = tp.t[2 - j];
-      if (wj == 0.0f) continue;
-      float v = at(rr, clampi(c + j, 0, W - 1));
+    for (int j = -R; j <= R; ++j) {
+      float v = at(rr, cols[j + R]);
       if (SQUARE) v = v * v;
-      const float term = wj * v;
-      racc = rfirst ? term : racc + term;
-      rfirst = false;
+      const float term = tp.t[2 - j] * v;
+      racc = j == -R ? term : racc + term;
     }
-    const float term = wk * racc;
-    acc = first ? term : acc + term;
-    first = false;
+    const float term = tp.t[2 - k] * racc;
+    acc = k == -R ? term : acc + term;
   }
   return acc;
 }
 
 // ------------------------------------------------------------- smooth
-// The confidence-weighted plus-stencil mean at offset p of the 3-plane
-// state `in` (planes of `plane` floats), from the centre and the four
-// neighbour offsets (of type I), weighted by the confidence plane.  Term
-// order of ops/smooth.py: centre, left, right, up, down; num / den.
-template <class Ld, class I = size_t>
-__device__ __forceinline__ void smooth_at(const float* in, float* out,
-                                          I plane, I p, I pl, I pr, I pu,
-                                          I pd) {
+// One smoothing pass at (r, x) of a window of the H x W image in shared
+// memory (rows from ra, columns from ca, rows of rw floats, planes of
+// `plane` floats): the confidence-weighted plus-stencil mean of the
+// 3-plane state, weighted by plane 2 (the confidence), in the term order
+// of ops/smooth.py (centre, left, right, up, down; num / den).  Global
+// row 0 and column 0 keep their values; clamp addressing at the image's
+// edges.  Every neighbour (r, x) reads, clamped to the image, must lie
+// in the window.
+__device__ __forceinline__ void smooth_px_window(const float* in, float* out,
+                                                 int plane, int rw, int ra,
+                                                 int ca, int H, int W, int r,
+                                                 int x) {
+  const int p = (r - ra) * rw + (x - ca);
+  if (r == 0 || x == 0) {
+    for (int c = 0; c < 3; ++c) out[c * plane + p] = in[c * plane + p];
+    return;
+  }
+  const int pr = p + (x + 1 < W ? 1 : 0);
+  const int pd = p + (r + 1 < H ? rw : 0);
   const float* cf = in + 2 * plane;
-  const float cc = Ld::ld(cf + p), cl = Ld::ld(cf + pl),
-              cr = Ld::ld(cf + pr), cu = Ld::ld(cf + pu),
-              cd = Ld::ld(cf + pd);
+  const float cc = cf[p], cl = cf[p - 1], cr = cf[pr], cu = cf[p - rw],
+              cd = cf[pd];
   float den = cc;
   den = den + cl;
   den = den + cr;
   den = den + cu;
   den = den + cd;
+  float res[3];
+#pragma unroll
   for (int c = 0; c < 3; ++c) {
     const float* v = in + c * plane;
-    float num = Ld::ld(v + p) * cc;
-    num = num + Ld::ld(v + pl) * cl;
-    num = num + Ld::ld(v + pr) * cr;
-    num = num + Ld::ld(v + pu) * cu;
-    num = num + Ld::ld(v + pd) * cd;
-    out[c * plane + p] = num / den;
+    float num = v[p] * cc;
+    num = num + v[p - 1] * cl;
+    num = num + v[pr] * cr;
+    num = num + v[p - rw] * cu;
+    num = num + v[pd] * cd;
+    res[c] = num / den;
   }
+  // every load before any store, so the confidence loads serve plane 2
+#pragma unroll
+  for (int c = 0; c < 3; ++c) out[c * plane + p] = res[c];
 }
 
-// One smoothing pass at (r, x) over the 3-plane state: global row 0 and
-// column 0 keep their values; clamp addressing at the image's edges.
-// in and out hold g.in_rows rows from global row g.in_row0; r is a
-// global row inside the image.  A neighbour row outside the band is
-// clamped to the band: such a value is wrong, and a row-sharded caller
-// gives the band enough halo rows that no output depends on it.
-template <class Ld>
-__device__ __forceinline__ void smooth_px(const float* in, float* out,
-                                          const RowBlock& g, int W, int r,
-                                          int x) {
-  const size_t plane = (size_t)g.in_rows * W;
-  const int lr = r - g.in_row0;
-  const size_t p = (size_t)lr * W + x;
-  if (r == 0 || x == 0) {
-    for (int c = 0; c < 3; ++c) out[c * plane + p] = Ld::ld(in + c * plane + p);
-    return;
+// n smoothing passes over a window of the H x W image in shared memory:
+// rows ra .. rb - 1 and columns ca .. cb - 1 of the 3 planes, rows of
+// cb - ca floats, in two buffers of 3 planes of wp floats each (win holds
+// the window; pass s reads buffer (s - 1) & 1 and writes buffer s & 1).
+// A pass spoils one more line at each side of the window that is not the
+// image's edge, so pass s computes only the lines at least s from such a
+// side (one pixel a thread in turn, as a flat index over the region);
+// the lines it leaves are stale.
+// Every thread of the block must call this; the block is synchronised on
+// return.  Returns the buffer after pass n.
+__device__ __forceinline__ const float* smooth_window_passes(
+    float* win, int wp, int ra, int rb, int ca, int cb, int H, int W,
+    int n) {
+  const int rw = cb - ca;
+  const int nt = blockDim.x * blockDim.y;
+  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
+  for (int s = 1; s <= n; ++s) {
+    const int lo_r = ra > 0 ? ra + s : 0, hi_r = rb < H ? rb - s : H;
+    const int lo_c = ca > 0 ? ca + s : 0, hi_c = cb < W ? cb - s : W;
+    const int cw = hi_c - lo_c;
+    const float* in = win + ((s - 1) & 1) * 3 * wp;
+    float* out = win + (s & 1) * 3 * wp;
+    if (cw > 0) {
+      // pixel i = tid + k nt of the region, row by row; (r, x) advance by
+      // (nt / cw, nt % cw) with a carry, so no division per pixel
+      const int dr = nt / cw, dx = nt - dr * cw;
+      int r = lo_r + tid / cw, x = lo_c + tid % cw;
+      for (; r < hi_r; r += dr, x += dx) {
+        if (x >= hi_c) {
+          x -= cw;
+          ++r;
+          if (r >= hi_r) break;
+        }
+        smooth_px_window(in, out, wp, rw, ra, ca, H, W, r, x);
+      }
+    }
+    __syncthreads();
   }
-  const int down = r + 1 < g.H ? r + 1 : g.H - 1;
-  smooth_at<Ld>(in, out, plane, p, p - 1,
-                (size_t)lr * W + (x + 1 < W ? x + 1 : W - 1),
-                (size_t)clampi(r - 1 - g.in_row0, 0, g.in_rows - 1) * W + x,
-                (size_t)clampi(down - g.in_row0, 0, g.in_rows - 1) * W + x);
-}
-
-// The same pass on a window of the H x W image (rows from ra, columns
-// from ca, rw columns, planes of `plane` floats), as the level kernel
-// keeps in shared memory: every neighbour (r, x) reads, clamped to the
-// image, must lie in the window.
-__device__ __forceinline__ void smooth_px_window(const float* in, float* out,
-                                                 int plane, int rw, int ra,
-                                                 int ca, int H, int W, int r,
-                                                 int x) {
-  const int lr = r - ra;
-  const int p = lr * rw + (x - ca);
-  if (r == 0 || x == 0) {
-    for (int c = 0; c < 3; ++c) out[c * plane + p] = in[c * plane + p];
-    return;
-  }
-  const int down = r + 1 < H ? r + 1 : H - 1;
-  smooth_at<LdPlain, int>(in, out, plane, p, p - 1,
-                          lr * rw + ((x + 1 < W ? x + 1 : W - 1) - ca),
-                          p - rw, (down - ra) * rw + (x - ca));
+  return win + (n & 1) * 3 * wp;
 }
 
 // ---------------------------------------------------------- direction

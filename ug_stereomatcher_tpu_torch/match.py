@@ -10,7 +10,8 @@ one pyramid level by one of two routes that compute the same result:
 * level-resident: every iteration of the level in one launch
   (ops/cuda/level.py), for levels of at most ``LEVEL_RESIDENT_MAX_PIXELS``
   pixels, where the per-iteration route is bound by the host's launch
-  rate.  The route is chosen from the level's size before anything runs.
+  rate.  The route is chosen from the level's size and schedule before
+  anything runs.
 
 ``match_pyramid`` runs the levels from coarsest to finest and upsamples
 each result to the next level (``matching``, MatchGPULib.cpp:1196-1318).
@@ -27,6 +28,7 @@ import torch
 
 from ug_stereomatcher_tpu_torch import pyramid as pyr
 from ug_stereomatcher_tpu_torch.config import MatcherConfig, check_supported
+from ug_stereomatcher_tpu_torch.ops.cuda import level
 from ug_stereomatcher_tpu_torch.ops.cuda.blur import fused_blur_gaussian
 from ug_stereomatcher_tpu_torch.ops.cuda.direction import (  # noqa: F401
     direction_maps,
@@ -75,11 +77,23 @@ def _make_level_body(left: torch.Tensor, right: torch.Tensor,
 
 
 def uses_level_resident(height: int, width: int,
-                        resident_max_pixels: Optional[int] = None) -> bool:
-    """Whether a level of this size takes the level-resident route."""
+                        resident_max_pixels: Optional[int] = None,
+                        n_smooth: int = 0, iters: int = 0,
+                        interp: str = "nearest",
+                        device: Optional[torch.device] = None) -> bool:
+    """Whether a level takes the level-resident route: its size is within
+    the gate and its schedule within what the level kernel takes (at most
+    ``level.MAX_ITERS`` iterations; on a CUDA ``device``, at most
+    ``level.max_smooth_passes(interp)`` smoothing passes, the window the
+    card holds).  A level beyond those limits runs per iteration, as the
+    JAX package's gate falls back (ug_stereomatcher_tpu/match.py:50-72)."""
     if resident_max_pixels is None:
         resident_max_pixels = LEVEL_RESIDENT_MAX_PIXELS
-    return height * width <= resident_max_pixels
+    if height * width > resident_max_pixels or iters > level.MAX_ITERS:
+        return False
+    if device is not None and torch.device(device).type == "cuda":
+        return n_smooth <= level.max_smooth_passes(interp)
+    return True
 
 
 def match_level(left: torch.Tensor, right: torch.Tensor, disp: torch.Tensor,
@@ -91,14 +105,17 @@ def match_level(left: torch.Tensor, right: torch.Tensor, disp: torch.Tensor,
     iteration count (22 for i > 5, else (i+1)*2) and the smoothing passes
     (10 on the two finest levels, else 5).  Levels of at most
     ``resident_max_pixels`` pixels (default LEVEL_RESIDENT_MAX_PIXELS; 0
-    runs every level per iteration) run level-resident.  On a CPU tensor
-    both routes are the same plain loop."""
+    runs every level per iteration) run level-resident, unless the
+    level's schedule exceeds the level kernel's limits
+    (``uses_level_resident``).  On a CPU tensor both routes are the same
+    plain loop."""
     check_supported(cfg)
     mi = cfg.iters_for_level(level_index)
     n_smooth = cfg.smooth_passes_for_level(level_index)
     thresholds = cfg.threshold_schedule(mi)
     if uses_level_resident(left.shape[-2], left.shape[-1],
-                           resident_max_pixels):
+                           resident_max_pixels, n_smooth, mi, cfg.interp,
+                           left.device):
         return level_resident_match(left, right, disp, thresholds, n_smooth,
                                     is_coarsest, cfg.conf_consts, cfg.interp)
     body = _make_level_body(left, right, _level_blurred_l2(left), cfg,

@@ -67,6 +67,8 @@ SIGNATURES = {
 QUERIES = {
     # (bilinear, n_smooth, out: max n_smooth, out: max grid for n_smooth)
     "ugsm_level_limits": [_I, _I, _PI, _PI],
+    # the smoothing passes one launch of the smooth kernel runs
+    "ugsm_smooth_max_chunk": [],
 }
 
 LAUNCHES: Dict[str, int] = collections.Counter()

@@ -2,11 +2,13 @@
 
 Replaces ``fused_blur_gaussian`` (ug_stereomatcher_tpu/ops/pallas/blur.py,
 ``pallas_call`` at :150).  Bound on the card by device memory (one read and
-one write per float, 20 flops per pixel); the kernel stages a 32 x 32
-tile and its halo in shared memory once and keeps the row-pass
-intermediate there, so the plane crosses device memory once each way.
-Bit-exact against the plain version: the same taps, boundary and term
-order, with no fused multiply-add.
+one write per float, 18 flops per pixel).  Each warp of the kernel walks a
+strip of 128 columns of one plane down a run of rows: 16-byte loads of a
+row, the +-2 columns by warp shuffles, the row pass in registers and the
+column pass from a rolling window of five row-pass rows in registers, so
+each float crosses device memory once each way (plus the 2-row halo of
+each run).  Bit-exact against the plain version: the same taps, boundary
+and term order, with no fused multiply-add.
 """
 
 from __future__ import annotations

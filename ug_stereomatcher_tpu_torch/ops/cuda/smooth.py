@@ -1,11 +1,17 @@
 """Confidence-weighted smoothing chain: wrapper of ``csrc/smooth.cu``.
 
 Replaces ``fused_smooth_average`` (ug_stereomatcher_tpu/ops/pallas/
-smooth.py, ``pallas_call`` at :205).  Bound on the card by device memory:
-each pass reads and writes the 3 state planes.  The kernel runs one
-launch per pass with ping-pong scratch planes (each pass weighted by the
-confidence from before it; row 0 and column 0 kept; clamp addressing),
-then the shared-memory separable 3-tap average of blur.cu.  The term
+smooth.py, ``pallas_call`` at :205).  Its byte bound is the 3 state
+planes read and written once, but with the state in shared memory the
+passes are bound by instruction issue (three IEEE divisions and about
+150 instructions a pixel and pass).  One launch runs up to
+``max_chunk()`` (10) passes and, in the last launch, the 3-tap average:
+each block loads its output tile plus a halo of one line per pass (and
+one for the average) into shared memory once, runs the passes there and
+writes only its tile, so the default configs (5 and 10 passes) take one
+launch and no scratch plane; more passes go through ceil(n /
+max_chunk()) launches and scratch states.  Each pass is weighted by the confidence
+from before it; row 0 and column 0 are kept; clamp addressing.  The term
 order is that of ops.smooth (centre, left, right, up, down; num / den)
 with no fused multiply-add, so it is bit-exact against the plain version.
 
@@ -13,7 +19,7 @@ The row-sharded form (``row0`` given; ``row_halo=True`` of the TPU
 kernel, smooth.py:48-110 and :172-202) smooths one shard's rows with
 ``smooth_halo_rows(n)`` real rows of halo on each side: row 0 and the
 clamps resolve at the image's global edges, and each pass spoils one more
-row at each edge of the band, never the shard's own rows.
+row at each cut edge of the band, never the shard's own rows.
 """
 
 from __future__ import annotations
@@ -24,7 +30,12 @@ import torch
 
 from ug_stereomatcher_tpu_torch.config import average_kernel
 from ug_stereomatcher_tpu_torch.ops.conv import blur_average_clamp
-from ug_stereomatcher_tpu_torch.ops.cuda._build import check_planes, launch, ptr
+from ug_stereomatcher_tpu_torch.ops.cuda._build import (
+    check_planes,
+    launch,
+    library,
+    ptr,
+)
 from ug_stereomatcher_tpu_torch.ops.resample import band_rows
 from ug_stereomatcher_tpu_torch.ops.smooth import weighted_smooth
 
@@ -33,6 +44,12 @@ def smooth_halo_rows(n_passes: int) -> int:
     """Halo rows the row-sharded form needs on each side for ``n_passes``
     passes and the 3-tap average."""
     return n_passes + 1
+
+
+def max_chunk() -> int:
+    """The smoothing passes one launch of the kernel runs (a compile-time
+    constant of csrc/smooth.cu, sized to the shared memory)."""
+    return library().ugsm_smooth_max_chunk()
 
 
 def fused_smooth_average_plain(state: torch.Tensor, n_passes: int,
@@ -66,8 +83,9 @@ def fused_smooth_average(state: torch.Tensor, n_passes: int,
     (3, Hl + 2 h, W) with h = smooth_halo_rows(n_passes), the rows [row0 -
     h, row0 + Hl + h) of a ``global_h``-row image (rows outside the image
     may hold anything), and the result is the (3, Hl, W) rows [row0, row0
-    + Hl).  A CUDA tensor runs the kernel; a CPU tensor runs the plain
-    version."""
+    + Hl).  A CUDA tensor runs the kernel (``max(1, ceil(n_passes /
+    max_chunk()))`` launches, counted as one call); a CPU tensor runs the
+    plain version."""
     if state.ndim != 3 or state.shape[0] != 3:
         raise ValueError(f"expected (3, H, W) state, got {tuple(state.shape)}")
     if n_passes < 0:
@@ -83,12 +101,14 @@ def fused_smooth_average(state: torch.Tensor, n_passes: int,
     if check_planes("fused_smooth_average", state).type == "cpu":
         return fused_smooth_average_plain(state, n_passes, row0, global_h)
     out = torch.empty((3, Hl, W), dtype=state.dtype, device=state.device)
-    scratch = torch.empty((2,) + tuple(state.shape), dtype=state.dtype,
-                          device=state.device)
+    # scratch states between launches: none for n <= max_chunk()
+    chunks = -(-n_passes // max_chunk())
+    tmp = [torch.empty_like(state) for _ in range(min(2, max(0, chunks - 1)))]
+    tmp_ptrs = [ptr(t) for t in tmp] + [None] * (2 - len(tmp))
     tap = float(average_kernel()[1])
     launch("ugsm_smooth_average",
            "smooth" if row0 is None else "smooth_row_halo", ptr(state),
-           ptr(out), ptr(scratch[0]), ptr(scratch[1]),
+           ptr(out), *tmp_ptrs,
            rows if row0 is None else global_h, W, Hl, row0 or 0, halo,
            int(n_passes), tap)
     return out
