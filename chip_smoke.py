@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch port on one CUDA card: mode 1 at 16 MP through
-the hand-written Hopper kernels, nearest and bilinear, whole and
+"""Smoke run of the PyTorch port on one CUDA card: modes 1 and 2 at 16 MP
+through the hand-written Hopper kernels, nearest and bilinear, whole and
 row-sharded.
 
 Phases (any failure exits non-zero before the last line is printed):
@@ -20,9 +20,12 @@ Phases (any failure exits non-zero before the last line is printed):
    kernel at levels 8 and 13 in both methods with replace_first on and
    off, with the grid barriers each timed launch passed and its time by
    phase (counted by block 0 on the card; more than 3 barriers per
-   iteration fails); each kernel's least possible time on the card
-   (bound) and, where one PyTorch call computes the same function, that
-   call's time;
+   iteration fails); mode 2's cases: the level kernel at the fovea size
+   (407 x 615) with the schedules of levels 0 and 1 (10 passes, 2 and 4
+   iterations) in both methods, and the windowed resample of a fovea
+   transition (onto the centred window of the 576 x 870 grid) in both;
+   each kernel's least possible time on the card (bound) and, where one
+   PyTorch call computes the same function, that call's time;
 3. slices: StereoEngine.match on the 1/f octave scene with a known 3 px
    shift at 3264 x 4928, (a) nearest with the level-resident gate, (b)
    nearest with every level per iteration, (c) bilinear; then
@@ -34,8 +37,17 @@ Phases (any failure exits non-zero before the last line is printed):
    and warm latency, peak device memory, and the kernel time by name over
    one warm match (torch.profiler) with the device's busy share; then two
    816 x 1232 pairs on a 2 x 2 mesh of this card against match per pair,
-   the 1 x N mesh across the cards where there are several, and levels
-   4-13 of the nearest match timed level-resident against per iteration;
+   the 1 x N mesh across the cards where there are several; mode 2 on
+   the same pair: match_foveated (f) nearest, (g) nearest per iteration,
+   (h) bilinear, (i) match_hierarchical nearest and (j)
+   match_batch(foveated=True) on the 1 x 4 mesh, each with its launch
+   counts against the config's, the value gates on stack level 0 (the
+   fovea at full resolution, inside 32 px; the coarser levels printed
+   against the shift at their scale), latency, peak memory and profile,
+   then (g) within the quantile rule of (f), (j) and the hierarchical
+   map's centred fovea window equal to (f) bit for bit; and levels 4-13
+   of the nearest mode-1 match timed level-resident against per
+   iteration;
 4. lockstep: pyramid level 4 (815 x 1231) refined from one input state
    by the kernels and by the plain versions on the card, held to the
    repo's quantile rule (q99 <= 2e-3, max <= 0.05);
@@ -55,9 +67,10 @@ unpacked by ``git archive`` against this checkout): each round runs
 every tree once, in its own process that imports the port from that
 tree and builds its kernels there, in an order reversed every other
 round (parent, change, change, parent, ...).  A process times
-StereoEngine.match nearest and bilinear on the bench scene, warm (host
-clock around a synchronised call, median of ``--matches`` after one
-warm-up), each with the device's busy share of one profiled match; the
+StereoEngine.match nearest and bilinear and match_foveated nearest
+(where the tree has it) on the bench scene, warm (host clock around a
+synchronised call, median of ``--matches`` after one warm-up), each with
+the device's busy share of one profiled match; the
 whole-image blur, warp (nearest and bilinear, on the random and the
 smooth field), direction and smooth (n = 0, 5 and 10) kernels at 16
 MP, the 6-plane zero-boundary blur of the stacked pyramid level, and
@@ -160,17 +173,24 @@ def nvidia_smi() -> str:
     return proc.stdout.strip().splitlines()[0]
 
 
-def expected_launches(cfg, h: int, w: int, resident_max_pixels=None) -> dict:
-    """Kernel launches of one StereoEngine.match, derived from the config:
-    one level-resident launch per gated level; warp, direction and smooth
-    once per iteration of every other level, each with one G(L^2) blur;
-    the pyramid blurs that feed a resample (levels 0 .. n-3); n-1
-    subsamples and n-1 upsamples (2(n-1) upsamples when confidence is
-    resampled on its own).  Bilinear forms count under their own names."""
-    from ug_stereomatcher_tpu_torch.match import uses_level_resident
+def expected_launches(cfg, h: int, w: int, resident_max_pixels=None,
+                      foveated: bool = False,
+                      hierarchical: bool = False) -> dict:
+    """Kernel launches of one StereoEngine.match (match_foveated with
+    ``foveated``, match_hierarchical with ``hierarchical`` too), derived
+    from the config: one level-resident launch per gated level (at its
+    match dims: the fovea size below fovea_level - 1 in mode 2); warp,
+    direction and smooth once per iteration of every other level, each
+    with one G(L^2) blur; the pyramid blurs that feed a resample (levels
+    0 .. n-3); n-1 subsamples and n-1 upsamples (fovea-to-fovea ones
+    windowed; 2(n-1) when confidence is resampled on its own); the
+    hierarchical map's fovea_level - 1 upsamples.  Bilinear forms count
+    under their own names."""
+    from ug_stereomatcher_tpu_torch.match import (
+        level_dims_for_matching, uses_level_resident)
 
     n = cfg.num_levels(h, w)
-    dims = cfg.dims_chain(h, w)[:n]
+    dims = level_dims_for_matching(cfg, h, w, n, foveated or hierarchical)
     resident = [i for i in range(n)
                 if uses_level_resident(*dims[i], resident_max_pixels,
                                        cfg.smooth_passes_for_level(i),
@@ -179,6 +199,8 @@ def expected_launches(cfg, h: int, w: int, resident_max_pixels=None) -> dict:
     iters = sum(cfg.iters_for_level(i) for i in range(n) if i not in resident)
     pyramid_blurs = (1 + max(0, n - 3)) if n > 1 else 0
     upsamples = (n - 1) * (1 if cfg.scale_conf_on_upsample else 2)
+    if hierarchical:
+        upsamples += cfg.fovea_level - 1
     form = "" if cfg.interp == "nearest" else f"_{cfg.interp}"
     counts = {f"warp{form}": iters, "direction": iters, "smooth": iters,
               "blur": (n - len(resident)) + pyramid_blurs,
@@ -187,21 +209,27 @@ def expected_launches(cfg, h: int, w: int, resident_max_pixels=None) -> dict:
     return {k: v for k, v in counts.items() if v}
 
 
-def expected_mesh_launches(cfg, h: int, w: int, devices) -> dict:
+def expected_mesh_launches(cfg, h: int, w: int, devices,
+                           foveated: bool = False) -> dict:
     """Kernel launches of one pair through StereoEngine.match_batch on a
-    mesh whose rows axis is ``devices``, derived from the config: a stage
-    with rows enough to shard (spatial._row_ok) launches once per shard,
-    any other once per distinct device (a sharded level: the row-sharded
-    warp, direction and smooth once per shard and iteration, and one
-    G(L^2) blur per shard; a whole level: as in expected_launches)."""
-    from ug_stereomatcher_tpu_torch.match import uses_level_resident
+    mesh whose rows axis is ``devices`` (``foveated``: mode 2), derived
+    from the config: a stage with rows enough to shard (spatial._row_ok)
+    launches once per shard, any other once per distinct device (a
+    sharded level: the row-sharded warp, direction and smooth once per
+    shard and iteration, and one G(L^2) blur per shard; a whole level: as
+    in expected_launches).  The pyramid is built at full size; a
+    fovea-to-fovea transition runs whole."""
+    from ug_stereomatcher_tpu_torch.match import (
+        level_dims_for_matching, uses_level_resident)
     from ug_stereomatcher_tpu_torch.parallel.spatial import (
         MIN_ROWS_PER_SHARD, _row_ok)
 
     n = cfg.num_levels(h, w)
-    dims = cfg.dims_chain(h, w)[:n]
+    full = cfg.dims_chain(h, w)[:n]
+    dims = level_dims_for_matching(cfg, h, w, n, foveated)
     shards, copies = len(devices), len(set(devices))
     form = "" if cfg.interp == "nearest" else f"_{cfg.interp}"
+    per_up = 1 if cfg.scale_conf_on_upsample else 2
     counts: dict = {}
 
     def add(name, k):
@@ -214,9 +242,9 @@ def expected_mesh_launches(cfg, h: int, w: int, devices) -> dict:
         targets = ([1] if i == 0 and n > 1 else []) + (
             [i + 2] if i + 2 < n else [])
         if targets:
-            add("blur", per(dims[i][0]))
+            add("blur", per(full[i][0]))
         for j in targets:
-            add(f"resample{form}", per(dims[j][0]))
+            add(f"resample{form}", per(full[j][0]))
         it = cfg.iters_for_level(i)
         if _row_ok(dims[i][0], shards, MIN_ROWS_PER_SHARD):
             for name in (f"warp{form}_row_halo", "direction_row_halo",
@@ -232,8 +260,9 @@ def expected_mesh_launches(cfg, h: int, w: int, devices) -> dict:
                 add(name, it * copies)
             add("blur", copies)
         if i > 0:
-            add(f"resample{form}", per(dims[i - 1][0])
-                * (1 if cfg.scale_conf_on_upsample else 2))
+            fovea_step = foveated and i < cfg.fovea_level
+            add(f"resample{form}",
+                (copies if fovea_step else per(dims[i - 1][0])) * per_up)
     return counts
 
 
@@ -574,6 +603,81 @@ def check_level(dev, cfg, report: dict) -> None:
     torch.cuda.empty_cache()
 
 
+def check_fovea_kernels(dev, cfg, report: dict) -> None:
+    """Phase 2c, mode 2's kernel cases at 16 MP: the level kernel at the
+    fovea size (407 x 615) with the schedules of levels 0 and 1 (10
+    smoothing passes, 2 and 4 iterations, replace_first off), both
+    methods, as ``level_fovea``; the windowed resample of a fovea
+    transition (407 x 615 onto the centred fovea window of the 576 x 870
+    grid of level 5, values x SCALE), both methods, as
+    ``resample_fovea_window`` / ``resample_bilinear_fovea_window``."""
+    from ug_stereomatcher_tpu_torch import match as match_mod
+    from ug_stereomatcher_tpu_torch.ops.cuda import level, resample
+
+    chain = cfg.dims_chain(H, W)
+    fh, fw = cfg.fovea_dims(H, W)
+    left, right, state = level_inputs(dev, fh, fw)
+    for lv in (0, 1):
+        mi = cfg.iters_for_level(lv)
+        n = cfg.smooth_passes_for_level(lv)
+        for method in ("nearest", "bilinear"):
+            per_px = (WARP_OPS[method] + DIRECTION_OPS
+                      + SMOOTH_PASS_OPS * n + AVERAGE_OPS)
+            args = (left, right, state, cfg.threshold_schedule(mi), n, False,
+                    cfg.conf_consts, method)
+            library = None
+            if method == "nearest":
+                library = graph_replay(lambda lv=lv: match_mod.match_level(
+                    left, right, state, lv, cfg, False,
+                    resident_max_pixels=0))
+            compare(report, "level_fovea", f"fovea-{mi}it-n{n}-{method}",
+                    level.level_resident_match,
+                    level.level_resident_match_plain, args,
+                    rule="close" if method == "nearest" else "allclose",
+                    work=(12 * fh * fw * 4.0, mi * per_px * fh * fw),
+                    library=library)
+            count_barriers(report["level_fovea"]["cases"][-1], level, args,
+                           mi)
+    del left, right, state
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    src = -3.0 + 6.0 * torch.rand(3, fh, fw, generator=gen, device=dev)
+    bh, bw = chain[cfg.fovea_level - 2]
+    r0, c0 = bh // 2 - fh // 2, bw // 2 - fw // 2
+
+    def coord_of(t):
+        return t * (1.0 / cfg.scale)
+    for method, name in (("nearest", "resample_fovea_window"),
+                         ("bilinear", "resample_bilinear_fovea_window")):
+        bil = method == "bilinear"
+        if bil:
+            (iy, wy), (ix, wx) = (
+                resample.bilinear_taps(fh, fh, coord_of, r0),
+                resample.bilinear_taps(fw, fw, coord_of, c0))
+            weights = (torch.from_numpy(wy).to(dev),
+                       torch.from_numpy(wx).to(dev))
+        else:
+            iy = resample.nearest_indices(fh, fh, coord_of, r0)
+            ix = resample.nearest_indices(fw, fw, coord_of, c0)
+            weights = ()
+        compare(report, name, f"{fh}x{fw}-window-of-{bh}x{bw}",
+                resample.resample_static, resample.resample_static_plain,
+                (src, torch.from_numpy(iy).to(dev),
+                 torch.from_numpy(ix).to(dev), cfg.scale, *weights),
+                work=(taps_bytes(src, fh, fw, iy, ix, bil),
+                      3 * fh * fw * ((12 if bil else 0) + 1)))
+        # the wrapper's own window (host taps with the offsets) is the
+        # same launch
+        win = resample.resample_tex(src, fh, fw, coord_of, cfg.scale, method,
+                                    row_off=r0, col_off=c0)
+        whole = resample.resample_tex(src, bh, bw, coord_of, cfg.scale,
+                                      method)
+        if not torch.equal(win, whole[:, r0:r0 + fh, c0:c0 + fw]):
+            fail(f"{name}: the window differs from the crop of the whole "
+                 f"resample")
+    del src
+    torch.cuda.empty_cache()
+
+
 def count_barriers(case: dict, level, args, mi: int) -> None:
     """The grid barriers one launch of the level kernel passed and its
     block 0's clock per phase, counted on the card, printed beside the
@@ -608,6 +712,86 @@ def graph_replay(fn):
     return graph.replay
 
 
+def first_call(dev, label: str, call, want: dict):
+    """Launch counts and first-call latency of ``call()``: the counts are
+    set to 0 just before it and read just after, and must equal the
+    config's ``want``.  Returns the result, the seconds, the counts and
+    the peak device memory."""
+    from ug_stereomatcher_tpu_torch.ops.cuda import _build
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = call()
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    counts = _build.launch_counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    print(f"{label} launches {json.dumps(counts, sort_keys=True)} expected "
+          f"{json.dumps(want, sort_keys=True)}")
+    if counts != want:
+        fail(f"{label}: launch counts {counts} differ from the config's "
+             f"{want}")
+    return out, first_s, counts, peak
+
+
+def check_planes(label: str, trip, shape) -> None:
+    for name, plane in zip(("disparity_h", "disparity_v", "confidence"),
+                           trip):
+        if tuple(plane.shape) != tuple(shape):
+            fail(f"{label}: {name} has shape {tuple(plane.shape)}")
+        if not torch.isfinite(plane).all().item():
+            fail(f"{label}: {name} has non-finite values")
+
+
+def value_gates(label: str, trip, margin: int, gate=None,
+                shift=None) -> dict:
+    """med|dh-s|, frac(|dh-s| < 1) and mean|dv| inside ``margin``, s the
+    scene's shift (``shift``: at a coarser level's scale); with a
+    ``gate``, fail unless med|dh-s| < gate, mean|dv| < gate and frac >
+    0.9 (the JAX package's on-chip check)."""
+    from ug_stereomatcher_tpu_torch import scene
+
+    dh, dv, conf = trip
+    m = slice(margin, -margin)
+    shift = scene.SHIFT_PX if shift is None else shift
+    errh = (dh[m, m] - shift).abs()
+    vals = {"med_abs_dh_err": errh.median().item(),
+            "frac_dh_err_lt_1": (errh < 1.0).float().mean().item(),
+            "mean_abs_dv": dv[m, m].abs().mean().item()}
+    print(f"{label} values med|dh-{shift:.3f}|="
+          f"{vals['med_abs_dh_err']:.4f} "
+          f"frac(|dh-{shift:.3f}|<1)={vals['frac_dh_err_lt_1']:.4f} "
+          f"mean|dv|={vals['mean_abs_dv']:.4f} "
+          f"mean conf={conf.mean().item():.4f}"
+          + ("" if gate is None else f" (gated at {gate})"))
+    if gate is not None and not (vals["med_abs_dh_err"] < gate
+                                 and vals["mean_abs_dv"] < gate
+                                 and vals["frac_dh_err_lt_1"] > 0.9):
+        fail(f"{label}: value gates (med|dh-3| < {gate}, mean|dv| < {gate}, "
+             f"frac(|dh-3| < 1) > 0.9)")
+    return vals
+
+
+def warm_summary(label: str, call, first_s: float, counts: dict,
+                 peak: int) -> dict:
+    """Warm latency (host clock around a synchronised call, median of 5)
+    and the profile of one more call."""
+    warm = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        call()
+        torch.cuda.synchronize()
+        warm.append(time.perf_counter() - t0)
+    median = statistics.median(warm)
+    print(f"{label} first_call_s={first_s:.4f} warm_median_s={median:.4f} "
+          f"warm_s={[round(x, 4) for x in warm]} peak_mem_bytes={peak}")
+    return {"first_call_s": first_s, "warm_s": warm, "warm_median_s": median,
+            "peak_mem_bytes": peak, "launches": counts,
+            "profile": profile_match(call, median, label)}
+
+
 def run_slice(dev, cfg, left, right, label: str, gate: float,
               resident_max_pixels=None, mesh=None):
     """Phase 3: one 16 MP match configuration through the kernels: value
@@ -615,8 +799,7 @@ def run_slice(dev, cfg, left, right, label: str, gate: float,
     launch counts, latency, peak memory and the profile.  With a mesh the
     pair goes through StereoEngine.match_batch on it.  Returns the
     summary and the level-0 triplet."""
-    from ug_stereomatcher_tpu_torch import StereoEngine, scene
-    from ug_stereomatcher_tpu_torch.ops.cuda import _build
+    from ug_stereomatcher_tpu_torch import StereoEngine
 
     eng = StereoEngine(cfg, device=dev,
                        resident_max_pixels=resident_max_pixels)
@@ -629,55 +812,65 @@ def run_slice(dev, cfg, left, right, label: str, gate: float,
             return eng.match_batch(left[None], right[None],
                                    mesh=mesh).triplet[:, 0]
         want = expected_mesh_launches(cfg, H, W, mesh.row_devices(0))
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats(dev)
+    trip, first_s, counts, peak = first_call(dev, label, call, want)
+    check_planes(label, trip, (H, W))
+    vals = value_gates(label, trip, 64, gate)
+    return {**warm_summary(label, call, first_s, counts, peak), **vals}, trip
 
-    _build.reset_launch_counts()
-    t0 = time.perf_counter()
-    trip = call()
-    torch.cuda.synchronize()
-    first_s = time.perf_counter() - t0
-    counts = _build.launch_counts()
-    peak = torch.cuda.max_memory_allocated(dev)
 
-    print(f"{label} launches {json.dumps(counts, sort_keys=True)} expected "
-          f"{json.dumps(want, sort_keys=True)}")
-    if counts != want:
-        fail(f"{label}: launch counts {counts} differ from the config's "
-             f"{want}")
+def run_fovea_slice(dev, cfg, left, right, label: str, gate: float,
+                    resident_max_pixels=None, mesh=None,
+                    hierarchical: bool = False):
+    """Phase 3, mode 2: StereoEngine.match_foveated of the 16 MP pair
+    (match_batch(foveated=True) on ``mesh``; match_hierarchical with
+    ``hierarchical``): launch counts, latency, peak memory and the
+    profile as in run_slice; the value gates on stack level 0, the
+    full-resolution fovea window, inside 32 px, and the coarser stack
+    levels' values printed without a gate.  Returns the summary and the
+    (3, fovea_level * fh, fw) stack, or the (3, H, W) hierarchical map
+    with its centred fovea window as stack level 0."""
+    from ug_stereomatcher_tpu_torch import StereoEngine, scene
 
-    dh, dv, conf = trip
-    for name, plane in (("disparity_h", dh), ("disparity_v", dv),
-                        ("confidence", conf)):
-        if tuple(plane.shape) != (H, W):
-            fail(f"{label}: {name} has shape {tuple(plane.shape)}")
-        if not torch.isfinite(plane).all().item():
-            fail(f"{label}: {name} has non-finite values")
-    errh = (dh[64:-64, 64:-64] - scene.SHIFT_PX).abs()
-    med = errh.median().item()
-    frac = (errh < 1.0).float().mean().item()
-    mean_dv = dv[64:-64, 64:-64].abs().mean().item()
-    print(f"{label} values med|dh-3|={med:.4f} frac(|dh-3|<1)={frac:.4f} "
-          f"mean|dv|={mean_dv:.4f} mean conf={conf.mean().item():.4f}")
-    if not (med < gate and mean_dv < gate and frac > 0.9):
-        fail(f"{label}: 16 MP value gates (med|dh-3| < {gate}, mean|dv| < "
-             f"{gate}, frac(|dh-3| < 1) > 0.9)")
-    del dh, dv, conf, errh
-
-    warm = []
-    for _ in range(5):
-        t0 = time.perf_counter()
-        call()
-        torch.cuda.synchronize()
-        warm.append(time.perf_counter() - t0)
-    median = statistics.median(warm)
-    print(f"{label} first_call_s={first_s:.4f} warm_median_s={median:.4f} "
-          f"warm_s={[round(x, 4) for x in warm]} peak_mem_bytes={peak}")
-    return {"first_call_s": first_s, "warm_s": warm, "warm_median_s": median,
-            "peak_mem_bytes": peak, "med_abs_dh_err": med,
-            "frac_dh_err_lt_1": frac, "mean_abs_dv": mean_dv,
-            "launches": counts,
-            "profile": profile_match(call, median, label)}, trip
+    eng = StereoEngine(cfg, device=dev,
+                       resident_max_pixels=resident_max_pixels)
+    fh, fw = cfg.fovea_dims(H, W)
+    k = cfg.fovea_level
+    if hierarchical:
+        def call():
+            return eng.match_hierarchical(left, right).triplet
+        want = expected_launches(cfg, H, W, resident_max_pixels,
+                                 hierarchical=True)
+    elif mesh is None:
+        def call():
+            res = eng.match_foveated(left, right)
+            return torch.stack([res.stack_h, res.stack_v, res.stack_c])
+        want = expected_launches(cfg, H, W, resident_max_pixels,
+                                 foveated=True)
+    else:
+        def call():
+            res = eng.match_batch(left[None], right[None], mesh=mesh,
+                                  foveated=True)
+            return torch.stack([res.stack_h[0], res.stack_v[0],
+                                res.stack_c[0]])
+        want = expected_mesh_launches(cfg, H, W, mesh.row_devices(0),
+                                      foveated=True)
+    out, first_s, counts, peak = first_call(dev, label, call, want)
+    if hierarchical:
+        check_planes(label, out, (H, W))
+        full = value_gates(f"{label} full map", out, 64)
+        top, lft = H // 2 - fh // 2, W // 2 - fw // 2
+        levels = [out[:, top:top + fh, lft:lft + fw]]
+    else:
+        check_planes(label, out, (k * fh, fw))
+        full = {}
+        levels = [out[:, i * fh:(i + 1) * fh] for i in range(k)]
+    vals = value_gates(f"{label} level 0", levels[0], 32, gate)
+    # stack level i holds the shift at its level's scale
+    coarse = [value_gates(f"{label} level {i}", lv, 32,
+                          shift=scene.SHIFT_PX / cfg.scale ** i)
+              for i, lv in enumerate(levels[1:], 1)]
+    return {**warm_summary(label, call, first_s, counts, peak), **vals,
+            "full_map": full, "coarser_levels": coarse}, out
 
 
 def profile_match(call, warm_s: float, label: str) -> dict:
@@ -865,8 +1058,59 @@ def lockstep_level(dev, cfg, left, right, report: dict) -> None:
                           "max": dmax, "kernel_ms": kms, "plain_ms": pms}
 
 
+def mode2_slices(dev, cfg, bil, left, right, slices: dict) -> None:
+    """Phase 3, mode 2 on the 16 MP pair: foveated (nearest, default
+    gate), foveated_per_iteration (resident_max_pixels=0), foveated_bilinear,
+    hierarchical and sharded_foveated (match_batch(foveated=True) on a
+    1 x 4 mesh of this card); then the structural checks: the
+    per-iteration route within the quantile rule of the default one, the
+    sharded stack and the hierarchical map's centred fovea window equal to
+    the foveated stack (level 0) bit for bit."""
+    from ug_stereomatcher_tpu_torch.parallel import make_mesh
+
+    fh, fw = cfg.fovea_dims(H, W)
+    slices["foveated"], fov = run_fovea_slice(dev, cfg, left, right,
+                                              "foveated", 0.5)
+    slices["foveated_per_iteration"], per_iter = run_fovea_slice(
+        dev, cfg, left, right, "foveated_per_iteration", 0.5,
+        resident_max_pixels=0)
+    d = (per_iter - fov).abs().flatten()
+    q99 = torch.quantile(d[::7].double(), 0.99).item()
+    dmax = d.max().item()
+    same = torch.equal(per_iter, fov)
+    print(f"foveated routes: per iteration against level-resident "
+          f"bit_exact={same} q99={q99} max={dmax}")
+    if not (q99 <= 2e-3 and dmax <= 0.05):
+        fail(f"foveated routes disagree: q99 {q99} max {dmax}")
+    slices["foveated_per_iteration"]["against_resident"] = {
+        "bit_exact": same, "q99": q99, "max": dmax}
+    del per_iter, d
+    slices["foveated_bilinear"], _ = run_fovea_slice(
+        dev, bil, left, right, "foveated_bilinear", 0.1)
+    slices["hierarchical"], hier = run_fovea_slice(
+        dev, cfg, left, right, "hierarchical", 0.5, hierarchical=True)
+    top, lft = H // 2 - fh // 2, W // 2 - fw // 2
+    window = hier[:, top:top + fh, lft:lft + fw]
+    if not torch.equal(window, fov[:, :fh]):
+        fail("hierarchical: the centred fovea window differs from stack "
+             f"level 0 (max |d| {(window - fov[:, :fh]).abs().max().item()})")
+    print("hierarchical: the centred fovea window equals stack level 0")
+    del hier, window
+    torch.cuda.empty_cache()
+    mesh = make_mesh(1, 4, devices=[dev] * 4)
+    slices["sharded_foveated"], sharded = run_fovea_slice(
+        dev, cfg, left, right, "sharded_foveated", 0.5, mesh=mesh)
+    check_same("sharded_foveated", sharded, fov)
+    print("mode 2 warm_median_s " + " ".join(
+        f"{k}={slices[k]['warm_median_s']:.4f}" for k in (
+            "foveated", "foveated_per_iteration", "foveated_bilinear",
+            "hierarchical", "sharded_foveated")))
+    torch.cuda.empty_cache()
+
+
 # name -> (source in csrc/, the TPU kernel's pallas_call it replaces,
-#          which slice's launch count it reports)
+#          which slice's launch count it reports[, the launch counter's
+#          name where it is not the kernel's])
 KERNELS = {
     "blur": ("blur.cu", "ops/pallas/blur.py:150", "nearest"),
     "resample": ("resample.cu", "ops/pallas/resample.py:223", "nearest"),
@@ -884,11 +1128,21 @@ KERNELS = {
                            "sharded_nearest"),
     "smooth_row_halo": ("smooth.cu", "ops/pallas/smooth.py:205",
                         "sharded_nearest"),
+    # mode 2: the level kernel at the fovea schedules, the windowed
+    # resample of the fovea transitions
+    "level_fovea": ("level.cu", "ops/pallas/level.py:351", "foveated",
+                    "level"),
+    "resample_fovea_window": ("resample.cu", "ops/pallas/resample.py:223",
+                              "foveated", "resample"),
+    "resample_bilinear_fovea_window": (
+        "resample.cu", "ops/pallas/resample.py:223", "foveated_bilinear",
+        "resample_bilinear"),
 }
 
 
 AB_TIMES = ("match_warm_median_s", "match_busy_share",
             "bilinear_match_warm_median_s", "bilinear_match_busy_share",
+            "foveated_warm_median_s", "foveated_busy_share",
             "blur_ms", "blur_zero6_ms", "warp_ms", "warp_bilinear_ms",
             "warp_smooth_ms", "warp_bilinear_smooth_ms", "direction_ms",
             "direction_row_halo_ms", "smooth0_ms", "smooth5_ms", "smooth_ms",
@@ -913,22 +1167,28 @@ def ab_child(tree: str, matches: int) -> dict:
     left = torch.from_numpy(left_np).to(dev)
     right = torch.from_numpy(right_np).to(dev)
     times = {"tree": tree}
-    for label, interp in (("match", "nearest"), ("bilinear_match", "bilinear")):
+
+    def time_entry(label, interp, entry):
         eng = StereoEngine(MatcherConfig(interp=interp), device=dev)
-        eng.match(left, right)
+        fn = getattr(eng, entry, None)
+        if fn is None:   # a tree from before mode 2
+            return
+        fn(left, right)
         torch.cuda.synchronize()
         warm = []
         for _ in range(matches):
             t0 = time.perf_counter()
-            eng.match(left, right)
+            fn(left, right)
             torch.cuda.synchronize()
             warm.append(time.perf_counter() - t0)
         median = statistics.median(warm)
-        prof = profile_match(lambda: eng.match(left, right), median, label)
+        prof = profile_match(lambda: fn(left, right), median, label)
         times.update({f"{label}_warm_s": warm,
                       f"{label}_warm_median_s": median,
                       f"{label}_busy_share": prof["busy_share"]})
-    del left, right
+
+    time_entry("match", "nearest", "match")
+    time_entry("bilinear_match", "bilinear", "match")
 
     gen = torch.Generator(device=dev).manual_seed(SEED)
 
@@ -998,6 +1258,9 @@ def ab_child(tree: str, matches: int) -> dict:
             n, m, coord_of)) for n, m in ((h1, H), (w1, W)))
     times["resample_bilinear_ms"] = cuda_ms(
         lambda: resample.resample_static(stacked, iy, ix, 1.0, wy, wx))
+    del stacked
+    # last, so that every tree's kernels are timed after the same work
+    time_entry("foveated", "nearest", "match_foveated")
     return times
 
 
@@ -1022,10 +1285,11 @@ def ab(trees, rounds: int, matches: int, out) -> int:
     summary = {}
     for name, _ in trees:
         mine = [x for x in runs if x["name"] == name]
+        # a tree from before mode 2 has no foveated times
         summary[name] = {k: {"median": statistics.median(x[k] for x in mine),
                              "min": min(x[k] for x in mine),
                              "max": max(x[k] for x in mine)}
-                         for k in AB_TIMES}
+                         for k in AB_TIMES if all(k in x for x in mine)}
         print(f"{name}: " + " ".join(
             f"{k}={v['median']:.4f} [{v['min']:.4f}, {v['max']:.4f}]"
             for k, v in summary[name].items()))
@@ -1132,6 +1396,7 @@ def main() -> int:
               "kernels": kernels}
     check_kernels(dev, cfg, kernels)
     check_level(dev, cfg, kernels)
+    check_fovea_kernels(dev, cfg, kernels)
 
     t0 = time.perf_counter()
     left_np, right_np = scene.make_pair(H, W, seed=SEED)
@@ -1170,6 +1435,7 @@ def main() -> int:
         across_cards(dev, cfg, left, right, near_ref, report)
     del near_ref
     torch.cuda.empty_cache()
+    mode2_slices(dev, cfg, bil, left, right, slices)
     level_table(dev, cfg, left, right, report)
     lockstep_level(dev, cfg, left, right, report)
 
@@ -1180,15 +1446,17 @@ def main() -> int:
         fail(f"the JAX package was imported: {jaxy[:5]}")
 
     rows = []
-    for name, (src, replaces, path) in KERNELS.items():
-        launches = slices[path]["launches"].get(name, 0)
+    for name, (src, replaces, path, *counter) in KERNELS.items():
+        launches = slices[path]["launches"].get(
+            counter[0] if counter else name, 0)
         if launches < 1:
             fail(f"{name}: not launched on the {path} main path")
         k = kernels[name]
         # the first timed case: 16 MP (the stacked 6-plane zero blur and
         # subsample, replace=False, n_smooth=10; the row-sharded forms on
         # the middle shard of four, 816 rows); level 8 for the level
-        # kernel (nearest, replace_first off)
+        # kernel (nearest, replace_first off), its fovea level 0 for
+        # level_fovea (2 iterations, 10 passes)
         case = next(c for c in k["cases"] if "ms" in c)
         rows.append({"name": name, "route": "cuda",
                      "source": f"ug_stereomatcher_tpu_torch/csrc/{src}",

@@ -12,7 +12,11 @@ kernels are built with --fmad=false and keep the plain versions' term
 order.  The row-sharded forms of warp, direction and smooth must equal
 their plain versions and the unsharded kernels' rows, on the top, middle
 and bottom shards, and the sharded level and batch on a mesh of one
-card repeated must equal the unsharded engine.
+card repeated must equal the unsharded engine.  Mode 2: the windowed
+resample and the level kernel at the fovea schedules are bit-exact; the
+foveated stack and hierarchical map on the card agree with the plain
+engine under the quantile rule and with the per-iteration route bit for
+bit, and the row-sharded foveated batch equals the unsharded stack.
 """
 
 import numpy as np
@@ -479,3 +483,117 @@ def test_match_batch_on_card_mesh_equals_match(cuda):
         assert torch.equal(res.disparity_h[i], single.disparity_h)
         assert torch.equal(res.disparity_v[i], single.disparity_v)
         assert torch.equal(res.confidence[i], single.confidence)
+
+
+# ---------------------------------------------------------------- mode 2
+# (source shape, full destination grid, window shape): the 16 MP fovea
+# upsample (407 x 615 onto the 576 x 870 grid of level 5) and small odd
+# ones; each window at the centre of its grid, as foveated_upsample
+# takes it, and at the far corner.
+WINDOWED_CASES = {"fovea16mp": ((3, 407, 615), (576, 870), (407, 615)),
+                  "odd": ((3, 37, 53), (52, 75), (37, 53)),
+                  "odd1": ((1, 23, 131), (33, 185), (17, 129))}
+
+
+@pytest.mark.parametrize("where", ["centre", "far_corner"])
+@pytest.mark.parametrize("method", ["nearest", "bilinear"])
+@pytest.mark.parametrize("case", sorted(WINDOWED_CASES))
+def test_resample_windowed_bit_exact(cuda, case, method, where):
+    shape, (bh, bw), (wh, ww) = WINDOWED_CASES[case]
+    r0, c0 = ((bh // 2 - wh // 2, bw // 2 - ww // 2) if where == "centre"
+              else (bh - wh, bw - ww))
+    img = rand(cuda, *shape, lo=-3.0, hi=3.0)
+
+    def coord_of(v):
+        return v * (1.0 / SCALE)
+    if method == "nearest":
+        iy, ix = (torch.from_numpy(resample.nearest_indices(n, m, coord_of,
+                                                            off)).to(cuda)
+                  for n, m, off in ((wh, shape[1], r0), (ww, shape[2], c0)))
+        weights = ()
+    else:
+        (iy, wy), (ix, wx) = (
+            (torch.from_numpy(a).to(cuda) for a in resample.bilinear_taps(
+                n, m, coord_of, off))
+            for n, m, off in ((wh, shape[1], r0), (ww, shape[2], c0)))
+        weights = (wy, wx)
+    win = resample.resample_tex(img, wh, ww, coord_of, SCALE, method,
+                                row_off=r0, col_off=c0)
+    assert torch.equal(win, resample.resample_static_plain(
+        img, iy, ix, SCALE, *weights))
+    whole = resample.resample_tex(img, bh, bw, coord_of, SCALE, method)
+    assert torch.equal(win, whole[:, r0:r0 + wh, c0:c0 + ww])
+
+
+@pytest.mark.parametrize("method", ["nearest", "bilinear"])
+@pytest.mark.parametrize("level_index", [0, 1])
+def test_level_resident_fovea_schedule_bit_exact(cuda, level_index, method):
+    """Levels 0 and 1 of a 16 MP foveated match: 407 x 615, 2 and 4
+    iterations of 10 smoothing passes, schedules mode 1 never gives the
+    level kernel; through match_level both routes give the same bits."""
+    cfg = MatcherConfig(interp=method)
+    mi = cfg.iters_for_level(level_index)
+    n = cfg.smooth_passes_for_level(level_index)
+    assert (mi, n) == ((level_index + 1) * 2, 10)
+    left, right, state = _level_inputs(cuda, 407, 615, seed=level_index)
+    assert_same(level.level_resident_match, level.level_resident_match_plain,
+                left, right, state, cfg.threshold_schedule(mi), n, False,
+                cfg.conf_consts, method)
+    assert match_mod.uses_level_resident(407, 615, None, n, mi, method, cuda)
+    _build.reset_launch_counts()
+    resident = match_mod.match_level(left, right, state, level_index, cfg,
+                                     False)
+    torch.cuda.synchronize()
+    assert _build.launch_counts() == {"level": 1}
+    assert torch.equal(resident, match_mod.match_level(
+        left, right, state, level_index, cfg, False, resident_max_pixels=0))
+
+
+@pytest.mark.parametrize("interp", ["nearest", "bilinear"])
+def test_foveated_engine_on_card_matches_plain_engine(cuda, interp):
+    """match_foveated and match_hierarchical on the card against the CPU
+    engine (each kernel's plain version) under the quantile rule; the
+    per-iteration route gives the same bits; the hierarchical map's
+    centred fovea window is stack level 0."""
+    cfg = MatcherConfig(interp=interp, fovea_level=3)
+    left, right = scene.make_pair(120, 168)
+    gpu = StereoEngine(cfg, device="cuda")
+    stack = gpu.match_foveated(left, right)
+    cpu = StereoEngine(cfg, device="cpu").match_foveated(left, right)
+    d = (torch.stack([stack.stack_h, stack.stack_v, stack.stack_c]).cpu()
+         - torch.stack([cpu.stack_h, cpu.stack_v, cpu.stack_c])).abs()
+    assert np.median(d.numpy()) < 1e-3 and (d > 0.02).float().mean() < 0.02
+    torch.testing.assert_close(stack.stack_left.cpu(), cpu.stack_left,
+                               rtol=1e-6, atol=1e-4)
+    per_iter = StereoEngine(cfg, device="cuda", resident_max_pixels=0)
+    assert torch.equal(per_iter.match_foveated(left, right).stack_h,
+                       stack.stack_h)
+    hier = gpu.match_hierarchical(left, right)
+    ref = StereoEngine(cfg, device="cpu").match_hierarchical(left, right)
+    d = (hier.triplet.cpu() - ref.triplet).abs().numpy()
+    assert np.median(d) < 1e-3 and (d > 0.02).mean() < 0.02
+    fh, fw = stack.roi_height, stack.roi_width
+    top, lft = 120 // 2 - fh // 2, 168 // 2 - fw // 2
+    assert torch.equal(hier.triplet[:, top:top + fh, lft:lft + fw],
+                       torch.stack(stack.level_disparity(0)))
+    dh0 = stack.level_disparity(0)[0].cpu().numpy()
+    assert abs(np.median(dh0[8:-8, 8:-8]) - scene.SHIFT_PX) < 0.5
+
+
+@pytest.mark.parametrize("interp", ["nearest", "bilinear"])
+def test_match_batch_foveated_on_card_mesh_equals_match_foveated(cuda,
+                                                                 interp):
+    """240 x 320 with fovea_level 3: the 120-row fovea levels run
+    row-sharded (30 rows a shard) through the row-halo kernels on a 1 x 4
+    mesh of this card, and the stack equals match_foveated bit for bit."""
+    cfg = MatcherConfig(interp=interp, fovea_level=3)
+    left, right = scene.make_pair(240, 320, seed=2)
+    eng = StereoEngine(cfg, device="cuda")
+    ref = eng.match_foveated(left, right)
+    mesh = par.make_mesh(1, 4, devices=[cuda] * 4)
+    _build.reset_launch_counts()
+    res = eng.match_batch(left[None], right[None], mesh=mesh, foveated=True)
+    torch.cuda.synchronize()
+    assert _build.launch_counts().get("direction_row_halo", 0) > 0
+    for name in ("stack_h", "stack_v", "stack_c"):
+        assert torch.equal(getattr(res, name)[0], getattr(ref, name)), name

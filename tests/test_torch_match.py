@@ -259,12 +259,3 @@ def test_engine_cuda_without_card_raises(monkeypatch):
 def test_engine_unported_modes_raise(kw):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         StereoEngine(MatcherConfig(**kw), device="cpu")
-
-
-def test_foveated_raises():
-    cfg = MatcherConfig()
-    x = torch.zeros(3, 16, 16)
-    with pytest.raises(NotImplementedError, match="mode 2"):
-        tmatch.match_pyramid([x], [x], cfg, (16, 16), foveated=True)
-    with pytest.raises(NotImplementedError, match="mode 2"):
-        tmatch.level_dims_for_matching(cfg, 16, 16, 1, True)

@@ -287,12 +287,6 @@ def test_match_batch_equals_match_per_pair(layout):
         assert torch.equal(res.confidence[i], single.confidence), i
 
 
-def test_match_batch_foveated_raises():
-    x = np.zeros((1, 16, 16, 3), np.uint8)
-    with pytest.raises(NotImplementedError, match="mode 2"):
-        StereoEngine(device="cpu").match_batch(x, x, foveated=True)
-
-
 # ------------------------------------------------- (f) mesh and imports
 def test_make_mesh_with_too_few_devices_raises():
     if torch.cuda.device_count() < 4:

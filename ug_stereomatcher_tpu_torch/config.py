@@ -160,6 +160,11 @@ class MatcherConfig:
             out.append((h, w))
         return tuple(out)
 
+    def fovea_dims(self, height: int, width: int) -> Tuple[int, int]:
+        """Fovea (h, w): the dims of level fovea_level - 1
+        (MatchGPULib.cpp:406-426)."""
+        return self.dims_chain(height, width)[self.fovea_level - 1]
+
     def iters_for_level(self, level_index: int) -> int:
         """mi = level_cutoff if i >= coarse_min_index else (i+1)*2
         (MatchGPULib.cpp:1741)."""

@@ -84,12 +84,16 @@ def resample_static(img: torch.Tensor, iy: torch.Tensor, ix: torch.Tensor,
 
 
 def resample_tex(img: torch.Tensor, out_h: int, out_w: int, coord_of: CoordFn,
-                 value_scale: float = 1.0,
-                 method: str = "nearest") -> torch.Tensor:
+                 value_scale: float = 1.0, method: str = "nearest",
+                 row_off: int = 0, col_off: int = 0) -> torch.Tensor:
     """Axis-separable texture resample of a (C, H, W) image: destination
     texel centres map through ``coord_of`` to source coordinates, point
     sampling (``"nearest"``) or linear filtering (``"bilinear"``), clamp
-    addressing, then ``value_scale``."""
+    addressing, then ``value_scale``.  ``row_off``/``col_off`` evaluate
+    only the window of rows [row_off, row_off + out_h) and columns
+    [col_off, col_off + out_w) of the full destination grid (JAX
+    ops/pallas/resample.py:286-297): the window lives in the host taps,
+    so the kernel is the same."""
     if method not in INTERP_METHODS:
         raise unsupported_interp(method)
     h, w = img.shape[-2], img.shape[-1]
@@ -98,10 +102,10 @@ def resample_tex(img: torch.Tensor, out_h: int, out_w: int, coord_of: CoordFn,
         return torch.from_numpy(a).to(img.device, non_blocking=True)
 
     if method == "nearest":
-        iy = upload(nearest_indices(out_h, h, coord_of))
-        ix = upload(nearest_indices(out_w, w, coord_of))
+        iy = upload(nearest_indices(out_h, h, coord_of, row_off))
+        ix = upload(nearest_indices(out_w, w, coord_of, col_off))
         return resample_static(img, iy, ix, value_scale)
-    (iy, wy), (ix, wx) = (bilinear_taps(out_h, h, coord_of),
-                          bilinear_taps(out_w, w, coord_of))
+    (iy, wy), (ix, wx) = (bilinear_taps(out_h, h, coord_of, row_off),
+                          bilinear_taps(out_w, w, coord_of, col_off))
     return resample_static(img, upload(iy), upload(ix), value_scale,
                            upload(wy), upload(wx))

@@ -187,6 +187,19 @@ def upsample_disp(img: torch.Tensor, out_h: int, out_w: int, scale: float,
     return value_scale * out
 
 
+def part_upsample_disp(img: torch.Tensor, out_h: int, out_w: int,
+                       scale: float, method: str = "nearest") -> torch.Tensor:
+    """dst(x, y) = scale * src(x / scale, y / scale), the fovea-stack
+    upsample of the hierarchical map (partsubsampleDispKernel,
+    MatchLib.cu:435-492).  It divides by ``scale``, where upsample_disp
+    multiplies by 1 / scale: the two differ in the last bit in float64."""
+    if method == "nearest":
+        out = _separable_nearest(img, out_h, out_w, lambda t: t / scale)
+    else:
+        out = _tex_resample(img, out_h, out_w, lambda t: t / scale, method)
+    return scale * out
+
+
 def warp_by_disparity(img: torch.Tensor, disp_x: torch.Tensor,
                       disp_y: torch.Tensor, method: str = "nearest",
                       row0: int = 0) -> torch.Tensor:

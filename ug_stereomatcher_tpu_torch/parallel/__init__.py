@@ -1,5 +1,5 @@
 """Multi-device matching: meshes, row sharding with halo exchange, and
-pair batches (mode 1), driven by one process."""
+pair batches (modes 1 and 2), driven by one process."""
 
 from ug_stereomatcher_tpu_torch.parallel.batch import (
     batch_match,

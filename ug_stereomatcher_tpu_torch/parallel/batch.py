@@ -1,4 +1,4 @@
-"""Pair-batch matching over a mesh (mode 1).
+"""Pair-batch matching over a mesh (modes 1 and 2).
 
 Counterpart of ``ug_stereomatcher_tpu/parallel/batch.py``.  One process
 drives every device.  With no mesh the pairs run in turn on one device;
@@ -39,27 +39,43 @@ def _single_pair(left: torch.Tensor, right: torch.Tensor,
                                    foveated=False).levels[0]
 
 
+def _stack_fovea_levels(levels, k: int) -> torch.Tensor:
+    """The k finest (3, fh, fw) levels stacked level-major into one
+    (3, k * fh, fw) triplet, the per-pair form of the reference's
+    output_stackH/V/C layout (UG_GPU_matcher.cpp:203-213)."""
+    return torch.cat(list(levels[:k]), dim=-2)
+
+
+def _single_pair_foveated(left: torch.Tensor, right: torch.Tensor,
+                          cfg: MatcherConfig) -> torch.Tensor:
+    """Mode 2 for one pair: the stacked fovea triplet (3, fovea_level *
+    fh, fw) of StereoEngine.match_foveated."""
+    levels, _, _ = match_mod.match_foveated_pair(left, right, cfg)
+    return _stack_fovea_levels(levels, cfg.fovea_level)
+
+
 def make_batch_matcher(cfg: MatcherConfig, mesh: Optional[Mesh] = None,
                        device=None, foveated: bool = False) -> BatchMatcher:
-    """A batch matcher (B, 3, H, W) x 2 -> (B, 3, H, W) float32 triplets.
+    """A batch matcher (B, 3, H, W) x 2 -> (B, 3, H, W) float32 triplets,
+    or with ``foveated=True`` -> (B, 3, fovea_level * fh, fw) stacked
+    fovea triplets (mode 2).
 
     Without a mesh the pairs run in turn on ``device``; ``rows == 1``
     sends pair i to pairs-group i mod P; ``rows > 1`` runs the (pairs x
     rows) hybrid."""
     check_supported(cfg)
-    if foveated:
-        raise match_mod._foveated_not_ported()
+    single = _single_pair_foveated if foveated else _single_pair
     if mesh is None:
         dev = torch.device(device if device is not None else "cuda")
 
         def in_turn(lb, rb):
             with on_device(dev):
                 return torch.stack([
-                    _single_pair(lb[i].to(dev), rb[i].to(dev), cfg)
+                    single(lb[i].to(dev), rb[i].to(dev), cfg)
                     for i in range(lb.shape[0])])
         return in_turn
     if mesh.shape["rows"] > 1:
-        return _make_hybrid_matcher(cfg, mesh)
+        return _make_hybrid_matcher(cfg, mesh, foveated)
 
     groups = [row[0] for row in mesh.devices]
     out_dev = groups[0]
@@ -69,17 +85,25 @@ def make_batch_matcher(cfg: MatcherConfig, mesh: Optional[Mesh] = None,
         for i in range(lb.shape[0]):
             dev = groups[i % len(groups)]
             with on_device(dev):
-                outs.append(_single_pair(lb[i].to(dev), rb[i].to(dev), cfg))
+                outs.append(single(lb[i].to(dev), rb[i].to(dev), cfg))
         return torch.stack([o.to(out_dev) for o in outs])
     return round_robin
 
 
-def _make_hybrid_matcher(cfg: MatcherConfig, mesh: Mesh) -> BatchMatcher:
+def _make_hybrid_matcher(cfg: MatcherConfig, mesh: Mesh,
+                         foveated: bool = False) -> BatchMatcher:
     """DP x SP batch matcher for a (pairs, rows) mesh with rows > 1: the
     batch goes in chunks of P pairs, pair j of a chunk row-sharded over the
     rows axis of pairs-group j."""
     p = mesh.shape["pairs"]
     out_dev = mesh.devices[0][0]
+
+    def result(levels):
+        if foveated:
+            k = cfg.fovea_level
+            return _stack_fovea_levels([lv.gather(out_dev)
+                                        for lv in levels[:k]], k)
+        return levels[0].gather(out_dev)
 
     def hybrid(lb, rb):
         outs = []
@@ -87,16 +111,18 @@ def _make_hybrid_matcher(cfg: MatcherConfig, mesh: Mesh) -> BatchMatcher:
             for j in range(min(p, lb.shape[0] - s)):
                 dev = mesh.devices[j][0]
                 res = sharded_match_pair(lb[s + j].to(dev), rb[s + j].to(dev),
-                                         cfg, mesh, pair=j)
-                outs.append(res.levels[0])
-        return torch.stack([o.gather(out_dev) for o in outs])
+                                         cfg, mesh, pair=j, foveated=foveated)
+                outs.append(res.levels)
+        return torch.stack([result(o) for o in outs])
     return hybrid
 
 
 def batch_match(left_batch: torch.Tensor, right_batch: torch.Tensor,
                 cfg: Optional[MatcherConfig] = None,
-                mesh: Optional[Mesh] = None, device=None) -> torch.Tensor:
+                mesh: Optional[Mesh] = None, device=None,
+                foveated: bool = False) -> torch.Tensor:
     """Match a (B, 3, H, W) float32 batch of pairs; one-shot form of
-    make_batch_matcher.  Returns (B, 3, H, W) triplets."""
-    return make_batch_matcher(cfg or MatcherConfig(), mesh, device)(
-        left_batch, right_batch)
+    make_batch_matcher.  Returns (B, 3, H, W) triplets, or (B, 3,
+    fovea_level * fh, fw) stacked fovea triplets with ``foveated=True``."""
+    return make_batch_matcher(cfg or MatcherConfig(), mesh, device,
+                              foveated)(left_batch, right_batch)

@@ -1,4 +1,5 @@
-"""Row sharding of the mode-1 match engine with explicit halo exchange.
+"""Row sharding of the match engine (modes 1 and 2) with explicit halo
+exchange.
 
 Counterpart of ``ug_stereomatcher_tpu/parallel/spatial.py``.  One process
 drives every device of a mesh's rows axis (mesh.py).  A level's (C, H, W)
@@ -38,6 +39,7 @@ import numpy as np
 import torch
 
 from ug_stereomatcher_tpu_torch import match as match_mod
+from ug_stereomatcher_tpu_torch import pyramid as pyr
 from ug_stereomatcher_tpu_torch.config import MatcherConfig, check_supported
 from ug_stereomatcher_tpu_torch.ops.cuda.blur import fused_blur_gaussian
 from ug_stereomatcher_tpu_torch.ops.cuda.direction import (
@@ -381,6 +383,26 @@ def sharded_match_level(left, right, disp, level_index: int,
     return state
 
 
+def _fovea_crop(x: RowBlocks, upper: int, left: int, fov_h: int,
+                fov_w: int, mesh: Mesh, pair: int,
+                min_rows_per_shard: int) -> RowBlocks:
+    """The (fov_h, fov_w) window of ``x`` at (upper, left): row-sharded
+    where its rows suffice (each shard copies its window rows from
+    whichever blocks hold them), else whole on each distinct device."""
+    devices = mesh.row_devices(pair)
+
+    def crop(a: int, b: int, dev: torch.device) -> torch.Tensor:
+        rows = x.rows(upper + a, upper + b, dev)
+        return rows[..., left:left + fov_w].contiguous()
+
+    if _row_ok(fov_h, len(devices), min_rows_per_shard):
+        return RowBlocks(fov_h, shards=[
+            crop(a, b, dev) for (a, b), dev in zip(
+                row_splits(fov_h, len(devices)), devices)])
+    return RowBlocks(fov_h, copies={dev: crop(0, fov_h, dev)
+                                    for dev in _distinct(devices)})
+
+
 class ShardedMatchResult(NamedTuple):
     """Per-level disparity triplets, index 0 = finest level, each a
     RowBlocks (``.gather(device)`` gives the (3, h, w) tensor)."""
@@ -391,14 +413,15 @@ def sharded_match_pair(left: torch.Tensor, right: torch.Tensor,
                        cfg: MatcherConfig, mesh: Mesh, pair: int = 0,
                        min_rows_per_shard: int = MIN_ROWS_PER_SHARD,
                        foveated: bool = False) -> ShardedMatchResult:
-    """Mode-1 coarse-to-fine match of one (3, H, W) pair on the rows axis
-    of pairs-group ``pair``: pyramid build, levels and upsamples are
+    """Coarse-to-fine match of one (3, H, W) pair on the rows axis of
+    pairs-group ``pair``: pyramid build, levels and upsamples are
     row-sharded where their rows suffice and run whole (once per distinct
-    device) where they do not.  Every level equals match_pyramid's bit for
-    bit."""
+    device) where they do not.  With ``foveated=True`` (mode 2) the levels
+    finer than fovea_level - 1 are their fovea windows
+    (pyramid.foveate_pyramid) and each transition between them is
+    pyramid.foveated_upsample, run whole.  Every level equals
+    match_pyramid's bit for bit."""
     check_supported(cfg)
-    if foveated:
-        raise match_mod._foveated_not_ported()
     h, w = left.shape[-2:]
     n = cfg.num_levels(h, w)
     devices = mesh.row_devices(pair)
@@ -409,9 +432,18 @@ def sharded_match_pair(left: torch.Tensor, right: torch.Tensor,
     if _row_ok(h, len(devices), min_rows_per_shard):
         stacked = stacked.shard(devices)
     levels = sharded_build_pyramid(stacked, cfg, n, mesh, **kw)
+    full_chain = cfg.dims_chain(h, w)
+    if foveated:
+        fov_h, fov_w = full_chain[cfg.fovea_level - 1]
+        for i in range(min(n, cfg.fovea_level - 1)):
+            lh, lw = full_chain[i]
+            levels[i] = _fovea_crop(levels[i], lh // 2 - fov_h // 2,
+                                    lw // 2 - fov_w // 2, fov_h, fov_w,
+                                    mesh, **kw)
     lp = [lv.map(lambda t: t[:c]) for lv in levels]
     rp = [lv.map(lambda t: t[c:]) for lv in levels]
-    dims = match_mod.level_dims_for_matching(cfg, h, w, n, False)
+    dims = match_mod.level_dims_for_matching(cfg, h, w, n, foveated)
+    big_h, big_w = full_chain[cfg.fovea_level - 2]
 
     results: List[RowBlocks] = [None] * n  # type: ignore[list-item]
     disp = RowBlocks.of(torch.zeros((3,) + tuple(dims[n - 1]),
@@ -427,7 +459,14 @@ def sharded_match_pair(left: torch.Tensor, right: torch.Tensor,
                                   cfg=cfg, is_coarsest=is_coarsest),
                 mesh, lp[i], rp[i], disp, pair=pair)
         results[i] = disp
-        if i > 0:
+        if i == 0:
+            break
+        if not foveated or i >= cfg.fovea_level:
             disp = sharded_upsample_to_level(disp, *dims[i - 1], cfg, mesh,
                                              **kw)
+        else:
+            disp = replicated_stage(
+                functools.partial(pyr.foveated_upsample, big_h=big_h,
+                                  big_w=big_w, cfg=cfg),
+                mesh, disp, pair=pair)
     return ShardedMatchResult(levels=tuple(results))
