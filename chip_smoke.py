@@ -47,7 +47,21 @@ Phases (any failure exits non-zero before the last line is printed):
    then (g) within the quantile rule of (f), (j) and the hierarchical
    map's centred fovea window equal to (f) bit for bit; and levels 4-13
    of the nearest mode-1 match timed level-resident against per
-   iteration;
+   iteration; the extras and the geometry on the same pair: early exit,
+   (k) nearest at 0.1 px and (l) bilinear at 0.02 px (the iterations of
+   each per-iteration level from its warp launches, the host reads, the
+   launch counts against those iterations with the level kernel at 8,
+   the value gates, latency and busy share beside (a) and (c)), the
+   convergence trace at level 4, match_with_consistency (the consistent
+   share on [64:-64, 64:-64] > 0.9, one warp launch beyond the two
+   matches), profile_match equal to (a) with its per-level breakdown,
+   warmup and get_disparities equal to match and match_foveated, and on
+   the verged rig of tests/test_geom.py scaled to 4928 x 3264 the
+   full-resolution point cloud of (a) (finite share; a float64
+   least-squares gold on 4096 seeded pixels, q99 <= 1e-3), the resized
+   clouds at 0.2 (bilinear through the resample kernel, which is held
+   against its plain version on that range map, and cubic) and the
+   foveated cloud of (f), each timed with its device part;
 4. lockstep: pyramid level 4 (815 x 1231) refined from one input state
    by the kernels and by the plain versions on the card, held to the
    repo's quantile rule (q99 <= 2e-3, max <= 0.05);
@@ -1108,6 +1122,332 @@ def mode2_slices(dev, cfg, bil, left, right, slices: dict) -> None:
     torch.cuda.empty_cache()
 
 
+def early_exit_slice(dev, cfg, left, right, label: str, gate: float,
+                     ref_summary: dict) -> dict:
+    """Phase 3d, (k) and (l): StereoEngine.match with early exit.  The
+    counts are set to 0 just before the match and read just after: warp,
+    direction and smooth once per iteration that ran (the host reads of
+    the exit test, one per iteration of levels 0-5), the level kernel
+    still at 8, the rest as in the fixed schedule.  Then each level
+    driven alone from the same pyramid gives its iterations (warp
+    launches) and the same bits.  Value gates, latency and busy share
+    beside the fixed schedule's slice ``ref_summary``."""
+    from ug_stereomatcher_tpu_torch import StereoEngine
+    from ug_stereomatcher_tpu_torch import match as match_mod
+    from ug_stereomatcher_tpu_torch import pyramid as pyr
+    from ug_stereomatcher_tpu_torch.ops.cuda import _build
+
+    eng = StereoEngine(cfg, device=dev)
+
+    def call():
+        return eng.match(left, right).triplet
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    _build.reset_launch_counts()
+    match_mod.reset_host_syncs()
+    t0 = time.perf_counter()
+    trip = call()
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    counts, syncs = _build.launch_counts(), match_mod.host_syncs()
+    peak = torch.cuda.max_memory_allocated(dev)
+    want = expected_launches(cfg, H, W)
+    form = "" if cfg.interp == "nearest" else f"_{cfg.interp}"
+    full = want[f"warp{form}"]
+    for name in (f"warp{form}", "direction", "smooth"):
+        want[name] = syncs
+    print(f"{label} launches {json.dumps(counts, sort_keys=True)} expected "
+          f"{json.dumps(want, sort_keys=True)}; host reads {syncs}, "
+          f"iterations {syncs} of {full}")
+    if counts != want or not 0 < syncs <= full:
+        fail(f"{label}: launch counts {counts} differ from {want}")
+    check_planes(label, trip, (H, W))
+    vals = value_gates(label, trip, 64, gate)
+
+    # each per-iteration level alone, from the same pyramid and states
+    n = cfg.num_levels(H, W)
+    dims = cfg.dims_chain(H, W)
+    lp, rp = pyr.build_pyramid_pair(
+        left.movedim(-1, 0).float().contiguous(),
+        right.movedim(-1, 0).float().contiguous(), cfg, n)
+    state = torch.zeros((3,) + tuple(dims[n - 1]), device=dev)
+    iters = {}
+    for i in range(n - 1, -1, -1):
+        _build.reset_launch_counts()
+        state = match_mod.match_level(lp[i], rp[i], state, i, cfg, i == n - 1)
+        torch.cuda.synchronize()
+        if not match_mod.uses_level_resident(*dims[i]):
+            iters[i] = _build.launch_counts().get(f"warp{form}", 0)
+        if i:
+            state = pyr.upsample_to_level(state, *dims[i - 1], cfg)
+    same = torch.equal(state, trip)
+    print(f"{label} iterations per level (warp launches) "
+          + " ".join(f"{i}:{k}/{cfg.iters_for_level(i)}"
+                     for i, k in sorted(iters.items()))
+          + f"; level by level equals the match: {same}")
+    if not same or sum(iters.values()) != syncs:
+        fail(f"{label}: the levels driven alone differ from the match")
+    summary = warm_summary(label, call, first_s, counts, peak)
+    print(f"{label} warm_median_s={summary['warm_median_s']:.4f} busy_share="
+          f"{summary['profile']['busy_share']:.3f} against the fixed "
+          f"schedule's {ref_summary['warm_median_s']:.4f} / "
+          f"{ref_summary['profile']['busy_share']:.3f}")
+    return {**summary, **vals, "host_syncs": syncs,
+            "iterations_per_level": iters, "fixed_iterations": full}
+
+
+def convergence_trace(dev, cfg, left, right, report: dict) -> None:
+    """Phase 3d: level_convergence_trace at level 4 (815 x 1231, 10
+    iterations) from the state level 5 hands it; its triplet equals the
+    per-iteration match_level's bit for bit."""
+    from ug_stereomatcher_tpu_torch import match as match_mod
+    from ug_stereomatcher_tpu_torch import pyramid as pyr
+
+    lv = LOCKSTEP_LEVEL
+    lp, rp = pyr.build_pyramid_pair(
+        left.movedim(-1, 0).float().contiguous(),
+        right.movedim(-1, 0).float().contiguous(), cfg, lv + 2)
+    coarse = torch.zeros((3,) + tuple(lp[lv + 1].shape[-2:]), device=dev)
+    coarse = match_mod.match_level(lp[lv + 1], rp[lv + 1], coarse, lv + 1,
+                                   cfg, True)
+    state0 = pyr.upsample_to_level(coarse, *lp[lv].shape[-2:], cfg)
+    trip, deltas = match_mod.level_convergence_trace(
+        lp[lv], rp[lv], state0, lv, cfg, False)
+    ref = match_mod.match_level(lp[lv], rp[lv], state0, lv, cfg, False,
+                                resident_max_pixels=0)
+    same = torch.equal(trip, ref)
+    d = deltas.cpu().tolist()
+    print(f"convergence_trace level {lv} {tuple(lp[lv].shape[-2:])} "
+          f"equals match_level: {same}; deltas (h, v) "
+          + " ".join(f"({a:.4f}, {b:.4f})" for a, b in d))
+    if not same or deltas.shape != (cfg.iters_for_level(lv), 2):
+        fail("convergence_trace: differs from the per-iteration level")
+    report["convergence_trace"] = {"level": lv, "deltas": d}
+
+
+def verged_rig():
+    """The verged rig of tests/test_geom.py:18-32 scaled to 4928 x 3264:
+    intrinsics x 7.7 in x and x 6.8 in y, the right camera 0.1 to the
+    side and turned 0.03 rad about y."""
+    from ug_stereomatcher_tpu_torch import geom
+
+    th = 0.03
+    K = np.array([[700.0 * 7.7, 0, 320.0 * 7.7], [0, 690.0 * 6.8,
+                                                  240.0 * 6.8], [0, 0, 1.0]])
+    R = np.array([[np.cos(th), 0, np.sin(th)], [0, 1, 0],
+                  [-np.sin(th), 0, np.cos(th)]])
+    P2 = K @ np.c_[R, [-0.1, 0.0, 0.0]]
+    left = geom.CameraCalibration(K=K, D=np.zeros(5), P=np.c_[K, np.zeros(3)])
+    return geom.StereoCalibration(left=left, right=geom.CameraCalibration(
+        K=K, D=np.zeros(5), P=P2))
+
+
+def lstsq_gold(P1, P2, x1, y1, x2, y2) -> np.ndarray:
+    """float64 NumPy least-squares solve of the four equations the closed
+    form solves (rows 0-1 of P1, rows 0-1 of P2 against its row 2), the
+    matrices rounded to float32 first as the port rounds them: (n, 3)."""
+    p1 = np.asarray(P1, np.float32).astype(np.float64)
+    p2 = np.asarray(P2, np.float32).astype(np.float64)
+    z = np.zeros_like(x1)
+    A = np.stack([
+        np.stack([np.full_like(x1, p1[0, 0]), z, p1[0, 2] - x1], -1),
+        np.stack([z, np.full_like(x1, p1[1, 1]), p1[1, 2] - y1], -1),
+        p2[0, :3][None] - x2[:, None] * p2[2, :3][None],
+        p2[1, :3][None] - y2[:, None] * p2[2, :3][None]], 1)
+    b = np.stack([z, z, x2 * p2[2, 3] - p2[0, 3], y2 * p2[2, 3] - p2[1, 3]],
+                 -1)
+    return np.linalg.solve(np.einsum("nij,nik->njk", A, A),
+                           np.einsum("nij,ni->nj", A, b)[..., None])[..., 0]
+
+
+def timed_geometry(label: str, call) -> tuple:
+    """One warm call's result and its seconds (host clock around a
+    synchronised call, after a first call), and its device part."""
+    call()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = call()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    prof = profile_match(call, secs, label)
+    print(f"{label} warm_s={secs:.4f} device_ms={prof['device_busy_ms']:.3f}")
+    return out, {"warm_s": secs, "device_busy_ms": prof["device_busy_ms"],
+                 "busy_share": prof["busy_share"]}
+
+
+def geometry(dev, cfg, left_np, trip, stack, kernels: dict,
+             slices: dict) -> None:
+    """Phase 3d, geometry on the verged rig: the full-resolution cloud of
+    slice (a) with its finite share and a float64 least-squares gold on
+    4096 seeded pixels (relative error q50/q99, q99 <= 1e-3), the resized
+    clouds at factor 0.2 (bilinear: the resample kernel, held against its
+    plain version on this range map; cubic: plain torch), and the
+    foveated cloud of stack level 0 of slice (f); each timed with its
+    device part.  Launch counts over the cloud functions: one bilinear
+    resample, no other kernel."""
+    from ug_stereomatcher_tpu_torch import geom
+    from ug_stereomatcher_tpu_torch.ops.cuda import _build, resample
+
+    rig = verged_rig()
+    dh, dv = trip[0], trip[1]
+    out: dict = {}
+    _build.reset_launch_counts()
+    cloud = geom.disparity_to_pointcloud(rig, dh, dv, left_np)
+    resized = {m: geom.resized_pointcloud(rig, dh, dv, left_np, 0.2, m)
+               for m in ("bilinear", "cubic")}
+    fov = geom.foveated_disparity_to_pointcloud(rig, cfg, stack[0], stack[1],
+                                                left_np)
+    torch.cuda.synchronize()
+    counts = _build.launch_counts()
+    print(f"geometry launches {json.dumps(counts, sort_keys=True)} expected "
+          f"{{\"resample_bilinear\": 1}}")
+    if counts != {"resample_bilinear": 1}:
+        fail(f"geometry: launch counts {counts}")
+    finite = float(np.isfinite(cloud.xyz).all(axis=1).mean())
+    idx = np.random.RandomState(SEED).choice(H * W, 4096, replace=False)
+    yy, xx = (idx // W).astype(np.float64), (idx % W).astype(np.float64)
+    x2 = (xx.astype(np.float32) + dh.flatten()[idx].cpu().numpy()).astype(
+        np.float64)
+    y2 = (yy.astype(np.float32) + dv.flatten()[idx].cpu().numpy()).astype(
+        np.float64)
+    gold = lstsq_gold(rig.left.P, rig.right.P, xx, yy, x2, y2)
+    rel = np.abs(cloud.xyz[idx] - gold) / np.maximum(np.abs(gold), 1e-12)
+    q50, q99 = float(np.quantile(rel, 0.5)), float(np.quantile(rel, 0.99))
+    print(f"geometry cloud {len(cloud)} points, finite share {finite:.6f}, "
+          f"median Z {float(np.median(cloud.xyz[:, 2])):.4f}; against the "
+          f"float64 least-squares gold on 4096 pixels: rel q50={q50:.3e} "
+          f"q99={q99:.3e}")
+    if not (finite > 0.999 and q99 <= 1e-3):
+        fail(f"geometry: finite share {finite}, gold q99 {q99}")
+    out["cloud"] = {"points": len(cloud), "finite_share": finite,
+                    "gold_rel_q50": q50, "gold_rel_q99": q99}
+    for m, c in resized.items():
+        print(f"geometry resized {m} {len(c)} points, finite share "
+              f"{float(np.isfinite(c.xyz).all(axis=1).mean()):.6f}")
+    if not np.array_equal(resized["bilinear"].xyz[:, :2],
+                          resized["cubic"].xyz[:, :2]):
+        fail("geometry: the resized clouds' X, Y differ between methods")
+    print(f"geometry foveated level 0: {len(fov)} points, finite share "
+          f"{float(np.isfinite(fov.xyz).all(axis=1).mean()):.6f}")
+
+    # the range-map resize: its kernel against its plain version
+    z = geom.range_map(rig.left.P, rig.right.P, dh, dv)[None].contiguous()
+    oh, ow = int(H * 0.2), int(W * 0.2)
+    (iy, wy), (ix, wx) = (resample.bilinear_taps(oh, H, lambda t: t * 5.0),
+                          resample.bilinear_taps(ow, W, lambda t: t * 5.0))
+    args = (z, *(torch.from_numpy(a).to(dev) for a in (iy, ix)), 1.0,
+            *(torch.from_numpy(a).to(dev) for a in (wy, wx)))
+    compare(kernels, "resample_bilinear_range_map", "16mp-0.2",
+            resample.resample_static, resample.resample_static_plain, args,
+            work=(taps_bytes(z, oh, ow, iy, ix, True), oh * ow * 12),
+            library=interpolate_resample(z, 5.0, (oh, ow), "bilinear"))
+
+    for label, call in (
+            ("cloud", lambda: geom.disparity_to_pointcloud(rig, dh, dv,
+                                                           left_np)),
+            ("resized_bilinear", lambda: geom.resized_pointcloud(
+                rig, dh, dv, left_np, 0.2, "bilinear")),
+            ("resized_cubic", lambda: geom.resized_pointcloud(
+                rig, dh, dv, left_np, 0.2, "cubic")),
+            ("foveated_cloud", lambda: geom.foveated_disparity_to_pointcloud(
+                rig, cfg, stack[0], stack[1], left_np)),
+            ("triangulate", lambda: geom.triangulate_disparity(
+                rig.left.P, rig.right.P, dh, dv))):
+        _, out[label] = timed_geometry(f"geometry {label}", call)
+    slices["geometry"] = {**out, "launches": counts}
+
+
+def extras(dev, cfg, bil, left, right, left_np, near_ref, slices: dict,
+           kernels: dict, report: dict) -> None:
+    """Phase 3d, the engine extras and the geometry at 16 MP: (k) early
+    exit nearest (0.1) and (l) bilinear (0.02), the convergence trace,
+    match_with_consistency, profile_match, warmup and get_disparities,
+    and the point clouds."""
+    import dataclasses
+
+    from ug_stereomatcher_tpu_torch import StereoEngine
+    from ug_stereomatcher_tpu_torch.ops.cuda import warp
+
+    slices["early_exit_nearest"] = early_exit_slice(
+        dev, dataclasses.replace(cfg, early_exit_delta=0.1), left, right,
+        "early_exit_nearest", 0.5, slices["nearest"])
+    slices["early_exit_bilinear"] = early_exit_slice(
+        dev, dataclasses.replace(bil, early_exit_delta=0.02), left, right,
+        "early_exit_bilinear", 0.1, slices["bilinear"])
+    torch.cuda.empty_cache()
+    convergence_trace(dev, cfg, left, right, report)
+
+    eng = StereoEngine(cfg, device=dev)
+    want = {k: 2 * v for k, v in expected_launches(cfg, H, W).items()}
+    want["warp"] += 1
+    (fwd, mask, err), first_s, counts, peak = first_call(
+        dev, "consistency", lambda: eng.match_with_consistency(left, right),
+        want)
+    m = slice(64, -64)
+    share = mask[m, m].float().mean().item()
+    q = torch.quantile(err[m, m].flatten()[::7].double(),
+                       torch.tensor([0.5, 0.9, 0.99], dtype=torch.float64,
+                                    device=dev)).tolist()
+    same = torch.equal(fwd.triplet, near_ref)
+    print(f"consistency share={share:.4f} on [64:-64, 64:-64] error "
+          f"q50={q[0]:.4f} q90={q[1]:.4f} q99={q[2]:.4f}; forward equals "
+          f"(a): {same}; first_call_s={first_s:.4f}")
+    if not (share > 0.9 and same):
+        fail(f"consistency: share {share}, forward equals (a) {same}")
+    # the check's own launches: those beyond the two matches
+    own = counts["warp"] - 2 * expected_launches(cfg, H, W)["warp"]
+    slices["consistency"] = {"share": share, "error_q50_q90_q99": q,
+                             "first_call_s": first_s, "peak_mem_bytes": peak,
+                             "launches": {"warp": own}}
+    bwd = eng.match(right, left)
+    stack = torch.stack([bwd.disparity_h, bwd.disparity_v])
+    compare(kernels, "warp_consistency", "16mp-2planes", warp.warp,
+            warp.warp_plain, (stack, fwd.disparity_h.contiguous(),
+                              fwd.disparity_v.contiguous(), "nearest"),
+            work=(6 * H * W * 4.0, WARP_OPS["nearest"] * H * W),
+            library=grid_sample_warp(stack, fwd.disparity_h,
+                                     fwd.disparity_v, "nearest"))
+    del fwd, bwd, mask, err, stack
+
+    (res, prof), first_s, counts, _ = first_call(
+        dev, "profile_match", lambda: eng.profile_match(left, right),
+        expected_launches(cfg, H, W))
+    same = torch.equal(res.triplet, near_ref)
+    print("profile_match levels " + " ".join(
+        f"{k}:{v['match_s'] * 1e3:.3f}+{v.get('upsample_s', 0) * 1e3:.3f}ms"
+        for k, v in sorted(prof["levels"].items())))
+    print(f"profile_match pyramid_build_s={prof['pyramid_build_s']:.4f} "
+          f"match_total_s={prof['match_total_s']:.4f} total_s="
+          f"{prof['total_s']:.4f} against (a) warm "
+          f"{slices['nearest']['warm_median_s']:.4f}; equals (a): {same}")
+    if not same:
+        fail("profile_match differs from match")
+    slices["profile_match"] = {"breakdown": prof, "launches": counts}
+
+    fresh = StereoEngine(cfg, device=dev)
+    t0 = time.perf_counter()
+    fresh.warmup(H, W)
+    fresh.warmup(H, W, foveated=True)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    got = fresh.get_disparities(left, right)
+    st = fresh.get_disparities(left, right, foveated=True)
+    ref = eng.match_foveated(left, right)
+    same = (torch.equal(got.triplet, near_ref)
+            and all(torch.equal(getattr(st, k), getattr(ref, k))
+                    for k in ("stack_h", "stack_v", "stack_c")))
+    print(f"warmup (both modes) {warm_s:.4f} s; get_disparities equals "
+          f"match and match_foveated: {same}")
+    if not same:
+        fail("get_disparities differs from match / match_foveated")
+    report["warmup_s"] = warm_s
+    del got
+    geometry(dev, cfg, left_np, near_ref,
+             torch.stack([ref.stack_h, ref.stack_v]), kernels, slices)
+    torch.cuda.empty_cache()
+
+
 # name -> (source in csrc/, the TPU kernel's pallas_call it replaces,
 #          which slice's launch count it reports[, the launch counter's
 #          name where it is not the kernel's])
@@ -1137,6 +1477,13 @@ KERNELS = {
     "resample_bilinear_fovea_window": (
         "resample.cu", "ops/pallas/resample.py:223", "foveated_bilinear",
         "resample_bilinear"),
+    # extras and geometry: the left-right check's warp of the backward
+    # 2-plane stack, the point cloud's bilinear range-map resize
+    "warp_consistency": ("warp.cu", "ops/pallas/warp.py:678", "consistency",
+                         "warp"),
+    "resample_bilinear_range_map": ("resample.cu",
+                                    "ops/pallas/resample.py:223", "geometry",
+                                    "resample_bilinear"),
 }
 
 
@@ -1433,9 +1780,11 @@ def main() -> int:
     pair_batch(dev, cfg, report)
     if torch.cuda.device_count() > 1:
         across_cards(dev, cfg, left, right, near_ref, report)
-    del near_ref
     torch.cuda.empty_cache()
     mode2_slices(dev, cfg, bil, left, right, slices)
+    extras(dev, cfg, bil, left, right, left_np, near_ref, slices, kernels,
+           report)
+    del near_ref
     level_table(dev, cfg, left, right, report)
     lockstep_level(dev, cfg, left, right, report)
 

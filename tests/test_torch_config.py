@@ -95,7 +95,6 @@ def test_from_reference_rejects_unknown_fields():
     ({"interp": "linear"}, ValueError),
     ({"interp": "cubic"}, NotImplementedError),
     ({"interp": "lanczos"}, ValueError),
-    ({"early_exit_delta": 0.02}, NotImplementedError),
     ({"dtype": "bfloat16"}, NotImplementedError),
 ])
 def test_unported_modes_raise(kw, exc):
@@ -108,7 +107,10 @@ def test_unported_modes_raise(kw, exc):
 def test_import_leaves_jax_out():
     code = ("import sys, ug_stereomatcher_tpu_torch, "
             "ug_stereomatcher_tpu_torch.match, "
-            "ug_stereomatcher_tpu_torch.ops.cuda._build; "
+            "ug_stereomatcher_tpu_torch.ops.cuda._build, "
+            "ug_stereomatcher_tpu_torch.ops.consistency, "
+            "ug_stereomatcher_tpu_torch.ops.convergence, "
+            "ug_stereomatcher_tpu_torch.geom; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'ug_stereomatcher_tpu.'))"
             " or m == 'ug_stereomatcher_tpu']; "

@@ -17,6 +17,10 @@ resample and the level kernel at the fovea schedules are bit-exact; the
 foveated stack and hierarchical map on the card agree with the plain
 engine under the quantile rule and with the per-iteration route bit for
 bit, and the row-sharded foveated batch equals the unsharded stack.
+Extras and geometry: early exit on the card against the CPU engine under
+the quantile rule, the left-right check through one warp launch on a
+2-plane stack, profile_match equal to match bit for bit, triangulation
+under a relative-quantile rule and the range-map resizes against the CPU.
 """
 
 import numpy as np
@@ -597,3 +601,94 @@ def test_match_batch_foveated_on_card_mesh_equals_match_foveated(cuda,
     assert _build.launch_counts().get("direction_row_halo", 0) > 0
     for name in ("stack_h", "stack_v", "stack_c"):
         assert torch.equal(getattr(res, name)[0], getattr(ref, name)), name
+
+
+# ------------------------------------------------ extras and geometry
+@pytest.mark.parametrize("interp,thr", [("nearest", 0.1), ("bilinear", 0.02)])
+def test_early_exit_on_card_matches_plain_engine(cuda, interp, thr):
+    """Early exit (the bench's thresholds) on the card against the CPU
+    engine's per-iteration route under the quantile rule; the iterations
+    that ran (warp launches) and the host reads are printed."""
+    cfg = MatcherConfig(interp=interp, fovea_level=3, early_exit_delta=thr)
+    left, right = scene.make_pair(120, 168)
+    _build.reset_launch_counts()
+    match_mod.reset_host_syncs()
+    gpu = StereoEngine(cfg, device="cuda", resident_max_pixels=0).match(
+        left, right)
+    torch.cuda.synchronize()
+    counts, syncs = _build.launch_counts(), match_mod.host_syncs()
+    cpu = StereoEngine(cfg, device="cpu", resident_max_pixels=0).match(
+        left, right)
+    n = cfg.num_levels(120, 168)
+    full = sum(cfg.iters_for_level(i) for i in range(n))
+    form = "" if interp == "nearest" else "_bilinear"
+    print(f"early exit {interp} {thr}: {counts[f'warp{form}']} of {full} "
+          f"iterations, {syncs} host reads")
+    assert counts[f"warp{form}"] == syncs <= full
+    d = (gpu.triplet.cpu() - cpu.triplet).abs().numpy()
+    assert np.median(d) < 1e-3 and (d > 0.02).mean() < 0.02
+
+
+@pytest.mark.parametrize("method", ["nearest", "bilinear"])
+def test_consistency_on_card_one_warp_of_two_planes(cuda, method):
+    from ug_stereomatcher_tpu_torch.ops import consistency
+    fh, fv, bh, bv = (rand(cuda, 61, 300, lo=-3.0, hi=3.0, seed=s)
+                      for s in range(4))
+    _build.reset_launch_counts()
+    mask, err = consistency.lr_consistency_mask(fh, fv, bh, bv, 1.0, method)
+    torch.cuda.synchronize()
+    assert _build.launch_counts() == {COUNTERS[method]: 1}
+    back = warp.warp_plain(torch.stack([bh, bv]), fh, fv, method)
+    eh, ev = fh + back[0], fv + back[1]
+    assert torch.equal(err, torch.sqrt(eh * eh + ev * ev))
+    ref_mask, ref_err = consistency.lr_consistency_mask(
+        *(x.cpu() for x in (fh, fv, bh, bv)), 1.0, method)
+    torch.testing.assert_close(err.cpu(), ref_err, rtol=2.5e-7, atol=0)
+    away = (ref_err - 1.0).abs() > 1e-5
+    assert torch.equal(mask.cpu()[away], ref_mask[away])
+
+
+COUNTERS = {"nearest": "warp", "bilinear": "warp_bilinear"}
+
+
+def test_profile_match_on_card_equals_match(cuda):
+    left, right = scene.make_pair(120, 168)
+    for gate in (None, 0):
+        eng = StereoEngine(MatcherConfig(fovea_level=3), device="cuda",
+                           resident_max_pixels=gate)
+        res, prof = eng.profile_match(left, right)
+        assert torch.equal(res.triplet, eng.match(left, right).triplet)
+        assert len(prof["levels"]) == MatcherConfig().num_levels(120, 168)
+
+
+def test_geometry_on_card_matches_cpu(cuda):
+    """Triangulation on the card against the CPU under the relative
+    quantile rule; the bilinear range-map resize (the resample kernel)
+    equals its plain version, the cubic one (plain torch) the CPU's."""
+    from ug_stereomatcher_tpu_torch import geom
+    from ug_stereomatcher_tpu_torch.geom.pointcloud import _resize
+    th = 0.03
+    K = np.array([[5390.0, 0, 2464.0], [0, 5313.0, 1632.0], [0, 0, 1.0]])
+    R = np.array([[np.cos(th), 0, np.sin(th)], [0, 1, 0],
+                  [-np.sin(th), 0, np.cos(th)]])
+    P1 = np.c_[K, np.zeros(3)]
+    P2 = K @ np.c_[R, [-0.1, 0.0, 0.0]]
+    dh = rand(cuda, 326, 492, lo=150.0, hi=170.0, seed=1)
+    dv = rand(cuda, 326, 492, lo=-0.5, hi=0.5, seed=2)
+    out = geom.triangulate_disparity(P1, P2, dh, dv)
+    ref = geom.triangulate_disparity(P1, P2, dh.cpu(), dv.cpu())
+    for o, r in zip(out, ref):
+        assert o.is_cuda
+        rel = ((o.cpu() - r).abs() / r.abs().clamp_min(1e-12)).double()
+        assert torch.isfinite(o).all()
+        assert rel.quantile(0.5) <= 1e-5 and rel.quantile(0.99) <= 1e-3
+    z = out[2]
+    _build.reset_launch_counts()
+    zb = _resize(z, 65, 98, 5.0, "bilinear")
+    torch.cuda.synchronize()
+    assert _build.launch_counts() == {"resample_bilinear": 1}
+    assert torch.equal(zb.cpu(), _resize(z.cpu(), 65, 98, 5.0, "bilinear"))
+    zc = _resize(z, 65, 98, 5.0, "cubic")
+    torch.testing.assert_close(zc.cpu(), _resize(z.cpu(), 65, 98, 5.0,
+                                                 "cubic"),
+                               rtol=1e-6, atol=0)

@@ -254,8 +254,7 @@ def test_engine_cuda_without_card_raises(monkeypatch):
         StereoEngine(MatcherConfig(), device="cuda")
 
 
-@pytest.mark.parametrize("kw", [{"interp": "cubic"},
-                                {"early_exit_delta": 0.02}])
+@pytest.mark.parametrize("kw", [{"interp": "cubic"}])
 def test_engine_unported_modes_raise(kw):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         StereoEngine(MatcherConfig(**kw), device="cpu")

@@ -134,11 +134,24 @@ def test_tex_gather_exact():
 
 
 def test_cubic_raises():
+    """The kernel wrappers refuse cubic, as the JAX package's Pallas
+    kernels do; the plain ops compute it, as the JAX package's ops do
+    (the geometry's range-map resize)."""
+    from ug_stereomatcher_tpu_torch.ops.cuda import resample as cres
+    from ug_stereomatcher_tpu_torch.ops.cuda import warp as cwarp
     img = torch.zeros(3, 4, 4)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        trs.warp_by_disparity(img, img[0], img[0], "cubic")
+        cwarp.warp(img, img[0], img[0], "cubic")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        trs.subsample(img, 2, 2, 2.0, "cubic")
+        cres.resample_tex(img, 2, 2, lambda t: t * 2.0, method="cubic")
+    x = rand(3, 9, 11, seed=24, hi=8.0)
+    dh, dv = rand(9, 11, seed=25, lo=-2, hi=2), rand(9, 11, seed=26)
+    np.testing.assert_allclose(
+        port(trs.warp_by_disparity, x, dh, dv, "cubic"),
+        ref(J.warp_by_disparity, x, dh, dv, "cubic"), **TOL)
+    np.testing.assert_allclose(port(trs.subsample, x, 4, 5, 2.0, "cubic"),
+                               ref(J.subsample, x, 4, 5, 2.0, "cubic"),
+                               **TOL)
 
 
 @pytest.mark.parametrize("field", sorted(WARP_FIELDS))

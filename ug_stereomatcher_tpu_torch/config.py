@@ -48,23 +48,23 @@ INTERP_METHODS = ("nearest", "bilinear")
 
 
 def unsupported_interp(method: str) -> Exception:
-    """The error for an interpolation mode the port does not run."""
+    """The error for an interpolation mode the port's matcher and kernels
+    do not run."""
     if method == "cubic":
         return NotImplementedError(
-            "interp='cubic' is not ported yet (ROADMAP.md queue 1, item 5: "
-            "the geometry resizes that use it); use 'nearest' or "
-            "'bilinear'")
+            "interp='cubic' is not run by the matcher or the resample "
+            "kernel: the JAX package's Pallas warp, level and resample "
+            "kernels refuse it, so the port's do too (a non-goal recorded "
+            "in ROADMAP.md); the cubic range-map resize of the geometry "
+            "runs as plain torch (ops.resample.subsample(method='cubic')); "
+            "use 'nearest' or 'bilinear'")
     return ValueError(f"unknown interp {method!r}")
 
 
 def check_supported(cfg: "MatcherConfig") -> None:
-    """Raise for configuration the port does not run yet."""
+    """Raise for configuration the port does not run."""
     if cfg.interp not in INTERP_METHODS:
         raise unsupported_interp(cfg.interp)
-    if cfg.early_exit_delta is not None:
-        raise NotImplementedError(
-            "early_exit_delta is not ported yet (ROADMAP.md queue 1, "
-            "item 4: engine extras)")
     if cfg.dtype != "float32":
         raise NotImplementedError(
             f"dtype={cfg.dtype!r}: the port's kernels are float32-only")

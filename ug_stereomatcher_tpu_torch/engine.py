@@ -7,10 +7,13 @@ two-axis disparity and confidence (UG_GPU_matcher.cpp:421-491).
 (matchStackPyramid, MatchGPULib.cpp:534), and ``match_hierarchical``
 the full-resolution map rebuilt from it (:355-360, :2589).
 ``match_batch`` runs a batch of pairs in either mode, on one device or
-over a mesh.  The
-engine runs on the device it is given: ``device="cuda"`` runs every
-stencil and gather as a hand-written CUDA kernel, ``device="cpu"`` runs
-their plain PyTorch versions.  There is no fallback from one to the other.
+over a mesh.  The extras: ``profile_match`` (mode 1 with a per-stage
+timing breakdown), ``match_with_consistency`` (both directions and the
+left-right check), ``get_disparities`` (the service entry point) and
+``warmup``.  The engine runs on the device it is given: ``device="cuda"``
+runs every stencil and gather as a hand-written CUDA kernel,
+``device="cpu"`` runs their plain PyTorch versions.  There is no fallback
+from one to the other.
 """
 
 from __future__ import annotations
@@ -237,6 +240,100 @@ class StereoEngine:
                 roi_width=fov_w, roi_height=fov_h,
                 num_levels=self.config.fovea_level)
         return MatchResult(out[:, 0], out[:, 1], out[:, 2])
+
+    def profile_match(self, left, right) -> Tuple[MatchResult, Dict]:
+        """Mode-1 match with a per-stage timing breakdown: the pyramid
+        build, each level's match_level and each upsample, with the device
+        synchronised after every stage, so each bucket is the stage's
+        completion time (the reference's per-level logs,
+        MatchGPULib.cpp:1265-1269, and excutionTime buckets, :1108-1117).
+        The syncs serialise the host and the device: use it for analysis,
+        not serving.  The port runs eagerly, so the result equals
+        :meth:`match`'s bit for bit (the gate ``resident_max_pixels``
+        included).
+
+        Returns ``(MatchResult, breakdown)``, the breakdown with the JAX
+        package's keys (``pyramid_build_s``, ``levels.level_XX.{match_s,
+        height, width, iterations, upsample_s}``, ``match_total_s``,
+        ``total_s``; ``iterations`` is the level's schedule), and stores
+        it at ``self.metrics["profile"]``."""
+        cfg = self.config
+
+        def sync():
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+
+        t_all = time.perf_counter()
+        left, right, (h, w) = self._pair(left, right)
+        n = cfg.num_levels(h, w)
+        dims = match_mod.level_dims_for_matching(cfg, h, w, n, False)
+        t0 = time.perf_counter()
+        lp, rp = pyr.build_pyramid_pair(left, right, cfg, n)
+        sync()
+        build_s = time.perf_counter() - t0
+
+        levels: Dict[str, Dict[str, float]] = {}
+        disp = torch.zeros((3,) + tuple(dims[n - 1]), dtype=left.dtype,
+                           device=left.device)
+        for i in range(n - 1, -1, -1):
+            t0 = time.perf_counter()
+            disp = match_mod.match_level(
+                lp[i], rp[i], disp, i, cfg, is_coarsest=(i == n - 1),
+                resident_max_pixels=self.resident_max_pixels)
+            sync()
+            lvl = {"match_s": round(time.perf_counter() - t0, 6),
+                   "height": dims[i][0], "width": dims[i][1],
+                   "iterations": cfg.iters_for_level(i)}
+            if i > 0:
+                t0 = time.perf_counter()
+                disp = pyr.upsample_to_level(disp, *dims[i - 1], cfg)
+                sync()
+                lvl["upsample_s"] = round(time.perf_counter() - t0, 6)
+            levels[f"level_{i:02d}"] = lvl
+        breakdown = {
+            "pyramid_build_s": round(build_s, 6),
+            "levels": levels,
+            "match_total_s": round(sum(
+                v["match_s"] + v.get("upsample_s", 0.0)
+                for v in levels.values()), 6),
+            "total_s": round(time.perf_counter() - t_all, 6),
+        }
+        self.metrics["profile"] = breakdown
+        return MatchResult(disp[0], disp[1], disp[2]), breakdown
+
+    def warmup(self, height: int, width: int, foveated: bool = False) -> None:
+        """Run one match of a zero pair of this size (``foveated``: mode
+        2), so that the first served pair pays no set-up; on the card its
+        first launch builds and loads the kernel library."""
+        z = torch.zeros((3, height, width), dtype=DTYPE, device=self.device)
+        if foveated:
+            self.match_foveated(z, z)
+        else:
+            self.match(z, z)
+
+    def match_with_consistency(self, left, right, tau: float = 1.0):
+        """Both directions and the left-right check: the forward match,
+        the backward one (the images swapped), and
+        ops.consistency.lr_consistency_mask of the two in the config's
+        interpolation (one warp launch on the card).  Returns
+        ``(MatchResult left -> right, mask (H, W) bool, error (H, W))``.
+        Not in the reference: a validity layer over its algorithm."""
+        from ug_stereomatcher_tpu_torch.ops.consistency import (
+            lr_consistency_mask)
+        fwd = self.match(left, right)
+        bwd = self.match(right, left)
+        mask, err = lr_consistency_mask(
+            fwd.disparity_h, fwd.disparity_v, bwd.disparity_h,
+            bwd.disparity_v, tau=tau, method=self.config.interp)
+        return fwd, mask, err
+
+    def get_disparities(self, left, right, foveated: bool = False):
+        """The service entry point (GetDisparitiesGPU,
+        srv/GetDisparitiesGPU.srv; UG_GPU_matcher.cpp:497): a MatchResult,
+        or with ``foveated`` a FoveatedStackResult."""
+        if foveated:
+            return self.match_foveated(left, right)
+        return self.match(left, right)
 
     def _pair(self, left, right):
         """Both images as (3, H, W) float32 on the engine's device, and

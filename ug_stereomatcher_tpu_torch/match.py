@@ -19,6 +19,13 @@ on a foveated pyramid (mode 2) the levels finer than fovea_level - 1 are
 fovea-sized windows, and each transition between them is a windowed
 upsample (pyramid.foveated_upsample).
 
+With ``cfg.early_exit_delta`` set, a per-iteration level stops once an
+iteration changes the disparity by less than the threshold (the
+reference's dormant convergence test, MatchGPULib.cpp:1323-1334); the
+level-resident route runs its full schedule, as the JAX package's does.
+``level_convergence_trace`` runs one level's full schedule and returns
+the change of every iteration.
+
 The JAX package's warp tiers exist only because a TPU cannot gather in
 2-D; the port's warp is one exact gather, so it has none.
 """
@@ -27,6 +34,7 @@ from __future__ import annotations
 
 from typing import Callable, List, NamedTuple, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from ug_stereomatcher_tpu_torch import pyramid as pyr
@@ -40,6 +48,7 @@ from ug_stereomatcher_tpu_torch.ops.cuda.direction import (  # noqa: F401
 from ug_stereomatcher_tpu_torch.ops.cuda.level import level_resident_match
 from ug_stereomatcher_tpu_torch.ops.cuda.smooth import fused_smooth_average
 from ug_stereomatcher_tpu_torch.ops.cuda.warp import warp
+from ug_stereomatcher_tpu_torch.ops.convergence import weighted_difference
 
 LevelBody = Callable[[torch.Tensor, int, float], torch.Tensor]
 
@@ -50,6 +59,19 @@ LevelBody = Callable[[torch.Tensor, int, float], torch.Tensor]
 # 8 ms faster than 64 Ki and within the spread of 512 Ki and 1 Mi, which
 # add levels 5 and 4 (PERF.md).
 LEVEL_RESIDENT_MAX_PIXELS = 256 * 1024
+
+# Host reads of the early-exit test (one per iteration of a level that may
+# exit early; each waits for the device to finish that iteration).
+_HOST_SYNCS = [0]
+
+
+def host_syncs() -> int:
+    """Early-exit host reads since the last ``reset_host_syncs()``."""
+    return _HOST_SYNCS[0]
+
+
+def reset_host_syncs() -> None:
+    _HOST_SYNCS[0] = 0
 
 
 def _level_blurred_l2(left: torch.Tensor) -> torch.Tensor:
@@ -111,7 +133,22 @@ def match_level(left: torch.Tensor, right: torch.Tensor, disp: torch.Tensor,
     runs every level per iteration) run level-resident, unless the
     level's schedule exceeds the level kernel's limits
     (``uses_level_resident``).  On a CPU tensor both routes are the same
-    plain loop."""
+    plain loop.
+
+    Early exit (``cfg.early_exit_delta`` set; opt-in, the reference runs
+    its fixed schedule): on the per-iteration route, a level of more than
+    one iteration stops after the first iteration whose
+    max(weighted_difference) over both axes falls below the threshold,
+    and runs at least one (JAX ``_match_level_scan``, match.py:368-421).
+    Each of its iterations reads that change on the host: one device sync
+    an iteration (``host_syncs``).  A level on the level-resident route
+    runs its full schedule: the JAX package's level kernel has no exit
+    and its gate never reads the threshold (match.py:50-72, :217-258), so
+    the level kernel here has none either.  At 16 MP that is levels 6-13
+    of mode 1 and all 14 levels of mode 2; only levels 0-5 of mode 1 (42
+    iterations at most) exit early.  torch.sum adds in another order than
+    XLA, so a change within about 1e-6 of the threshold may stop a level
+    one iteration sooner or later than the JAX package does."""
     check_supported(cfg)
     mi = cfg.iters_for_level(level_index)
     n_smooth = cfg.smooth_passes_for_level(level_index)
@@ -124,9 +161,51 @@ def match_level(left: torch.Tensor, right: torch.Tensor, disp: torch.Tensor,
     body = _make_level_body(left, right, _level_blurred_l2(left), cfg,
                             is_coarsest, n_smooth)
     state = disp
+    if cfg.early_exit_delta is None or mi <= 1:
+        for m, threshold in enumerate(thresholds):
+            state = body(state, m, threshold)
+        return state
+    # the JAX loop compares float32 values: the threshold rounded so
+    thr = float(np.float32(cfg.early_exit_delta))
     for m, threshold in enumerate(thresholds):
-        state = body(state, m, threshold)
+        new = body(state, m, threshold)
+        delta = _changes(new, state).max()
+        state = new
+        _HOST_SYNCS[0] += 1
+        if not delta.item() >= thr:   # NaN stops too, as in JAX
+            break
     return state
+
+
+def _changes(new: torch.Tensor, old: torch.Tensor) -> torch.Tensor:
+    """(2,) weighted_difference of disp_h and disp_v between two states,
+    weighted by the new confidence."""
+    return torch.stack([weighted_difference(new[k], old[k], new[2])
+                        for k in (0, 1)])
+
+
+def level_convergence_trace(left: torch.Tensor, right: torch.Tensor,
+                            disp: torch.Tensor, level_index: int,
+                            cfg: MatcherConfig, is_coarsest: bool
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One level's full iteration schedule on the per-iteration route,
+    whatever the level's size or ``cfg.early_exit_delta``: ``(triplet,
+    deltas)``, deltas a (mi, 2) float32 tensor of each iteration's
+    weighted_difference of (disp_h, disp_v), stacked on the device with
+    no host read in the loop (JAX match.py:424-453).  The triplet equals
+    match_level's per-iteration route without early exit bit for bit."""
+    check_supported(cfg)
+    mi = cfg.iters_for_level(level_index)
+    body = _make_level_body(left, right, _level_blurred_l2(left), cfg,
+                            is_coarsest, cfg.smooth_passes_for_level(
+                                level_index))
+    state = disp
+    deltas = []
+    for m, threshold in enumerate(cfg.threshold_schedule(mi)):
+        new = body(state, m, threshold)
+        deltas.append(_changes(new, state))
+        state = new
+    return state, torch.stack(deltas)
 
 
 class PyramidMatchResult(NamedTuple):

@@ -33,6 +33,7 @@ from __future__ import annotations
 
 import contextlib
 import functools
+import warnings
 from typing import Callable, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
@@ -335,7 +336,9 @@ def sharded_match_level(left, right, disp, level_index: int,
                         pair: int = 0) -> RowBlocks:
     """match.match_level with the rows sharded over the rows axis of
     pairs-group ``pair``; left, right and disp are tensors or RowBlocks.
-    The result equals match_level's bit for bit."""
+    The result equals match_level's bit for bit without early exit: the
+    level runs its fixed schedule whatever ``cfg.early_exit_delta`` is
+    (sharded_match_pair warns)."""
     check_supported(cfg)
     devices = mesh.row_devices(pair)
     left = RowBlocks.of(left).shard(devices)
@@ -420,8 +423,18 @@ def sharded_match_pair(left: torch.Tensor, right: torch.Tensor,
     finer than fovea_level - 1 are their fovea windows
     (pyramid.foveate_pyramid) and each transition between them is
     pyramid.foveated_upsample, run whole.  Every level equals
-    match_pyramid's bit for bit."""
+    match_pyramid's bit for bit.
+
+    ``cfg.early_exit_delta`` stops only the levels that run whole
+    (match.match_level); a row-sharded level runs its fixed schedule, since
+    an exit would need every shard's change summed each iteration, and a
+    warning says so (JAX spatial.py:839-848)."""
     check_supported(cfg)
+    if cfg.early_exit_delta is not None:
+        warnings.warn(
+            "early_exit_delta is ignored by row-sharded level bodies; "
+            "sharded_match_pair runs the fixed iteration schedule on "
+            "sharded levels", stacklevel=2)
     h, w = left.shape[-2:]
     n = cfg.num_levels(h, w)
     devices = mesh.row_devices(pair)
