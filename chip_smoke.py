@@ -61,7 +61,21 @@ Phases (any failure exits non-zero before the last line is printed):
    least-squares gold on 4096 seeded pixels, q99 <= 1e-3), the resized
    clouds at 0.2 (bilinear through the resample kernel, which is held
    against its plain version on that range map, and cubic) and the
-   foveated cloud of (f), each timed with its device part;
+   foveated cloud of (f), each timed with its device part; then phase
+   3e, the host layers, writing only .npy, .txt, .json, .xml and .pcd
+   files into a temporary directory: BatchRunner over a 3-pair .npy
+   manifest with the verged rig as two XML files and clouds, with and
+   without prefetch (each pair's launches those of a match, pair 0's
+   dumps equal to (a) bit for bit, each PCD of 16.1 M points, a rerun
+   from the checkpoint skipping all three), pairs per second, the busy
+   share and pair 0's seconds by stage (load, H2D, match, dump, cloud,
+   native PCD write against geom.save_pcd, whose bytes it must equal);
+   DisparityService planes equal to (a) and to match_foveated, the
+   default EngineSupervisor in all three modes; ``python -m
+   ug_stereomatcher_tpu_torch match`` and ``cloud`` in subprocesses
+   (rc 0, outputs checked, wall time); and accuracy_table(192, 256) on
+   the card against the per-scene gates of tests/test_eval_cli.py and
+   the same table on the CPU, with evaluate_occlusion in both modes;
 4. lockstep: pyramid level 4 (815 x 1231) refined from one input state
    by the kernels and by the plain versions on the card, held to the
    repo's quantile rule (q99 <= 2e-3, max <= 0.05);
@@ -1448,6 +1462,367 @@ def extras(dev, cfg, bil, left, right, left_np, near_ref, slices: dict,
     torch.cuda.empty_cache()
 
 
+# The per-scene accuracy gates of tests/test_eval_cli.py:24-33 (interp ->
+# scene -> (median EPE max, share of pixels above 1 px max)), copied here:
+# the smoke imports nothing of the JAX package or its tests.
+EPE_GATES = {
+    "nearest": {"constant": (0.45, 0.03), "vertical": (0.45, 0.02),
+                "slant": (0.45, 0.02), "sine": (0.45, 0.02),
+                "step": (0.50, 0.05)},
+    "bilinear": {"constant": (0.08, 0.03), "vertical": (0.08, 0.02),
+                 "slant": (0.08, 0.02), "sine": (0.08, 0.02),
+                 "step": (0.05, 0.02)},
+}
+# card against CPU: interp -> (|d median EPE| max, |d bad_1_0| max); a
+# nearest transition flips on float noise, so nearest gets more room
+EPE_CARD_VS_CPU = {"nearest": (0.03, 0.01), "bilinear": (0.002, None)}
+
+CAMERA_XML = """<?xml version="1.0"?>
+<opencv_storage>
+<K type_id="opencv-matrix"><rows>3</rows><cols>3</cols><dt>d</dt>
+<data>{K}</data></K>
+<D type_id="opencv-matrix"><rows>1</rows><cols>5</cols><dt>d</dt>
+<data>{D}</data></D>
+<P type_id="opencv-matrix"><rows>3</rows><cols>4</cols><dt>d</dt>
+<data>{P}</data></P>
+</opencv_storage>
+"""
+
+
+def write_camera_xml(path: Path, cam) -> str:
+    """One camera of a StereoCalibration as an OpenCV FileStorage XML."""
+    def text(m):
+        return " ".join(repr(float(v)) for v in np.ravel(m))
+    path.write_text(CAMERA_XML.format(K=text(cam.K), D=text(cam.D),
+                                      P=text(cam.P)))
+    return str(path)
+
+
+def pcd_points(path: str) -> int:
+    """The points a binary PCD file holds, from its size: 16 bytes a point
+    after the header, which must name the same count."""
+    with open(path, "rb") as fh:
+        head = fh.read(512)
+    end = head.index(b"DATA binary\n") + len(b"DATA binary\n")
+    n = (Path(path).stat().st_size - end) / 16
+    if f"POINTS {int(n)}\n".encode() not in head[:end]:
+        fail(f"{path}: header does not hold {n} points")
+    return int(n)
+
+
+def counted(label: str, call, want: dict):
+    """``call()`` with the launch counts set to 0 just before it and read
+    just after; fails unless they equal ``want``.  Returns the result,
+    its seconds (host clock, synchronised) and the counts."""
+    from ug_stereomatcher_tpu_torch.ops.cuda import _build
+
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = call()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = _build.launch_counts()
+    print(f"{label} {secs:.4f} s launches "
+          f"{json.dumps(counts, sort_keys=True)}")
+    if counts != want:
+        fail(f"{label}: launch counts {counts} differ from {want}")
+    return out, secs, counts
+
+
+def runner_phase(dev, cfg, left_np, right_np, near_ref, tmp: Path,
+                 out: dict) -> None:
+    """Phase 3e, the runner: a 3-pair .npy manifest (the scene and its
+    row-flipped and row-rolled copies, each with the 3 px shift) and the
+    verged rig as two XML files; the native library built first (timed
+    on its own); BatchRunner with clouds, with and without prefetch in
+    turns (with, without, without, with), each pair's launches those of
+    a match; pair 0's dumps equal (a) bit for bit, every PCD holds 16.1
+    M points; a rerun with the checkpoint skips all three pairs; one
+    more run under the profiler for the device's busy share; and pair
+    0's wall time by stage (load, H2D, match, dump, cloud, PCD write)."""
+    import shutil
+
+    from ug_stereomatcher_tpu_torch import StereoEngine, geom, native
+    from ug_stereomatcher_tpu_torch.io import load_image
+    from ug_stereomatcher_tpu_torch.pipeline import (BatchRunner,
+                                                     ImageListCapture)
+
+    pairs = [(left_np, right_np),
+             (left_np[::-1], right_np[::-1]),
+             (np.roll(left_np, H // 3, 0), np.roll(right_np, H // 3, 0))]
+    paths = []
+    for i, pair in enumerate(pairs):
+        for side, img in zip("lr", pair):
+            p = tmp / f"{side}{i}.npy"
+            np.save(p, np.ascontiguousarray(img))
+            paths.append(str(p))
+    man = tmp / "pairs.txt"
+    man.write_text("\n".join(paths) + "\n")
+    rig = verged_rig()
+    cal = [write_camera_xml(tmp / f"cal{s}.xml", c)
+           for s, c in (("L", rig.left), ("R", rig.right))]
+    calib = geom.StereoCalibration.from_xml(*cal)
+    eng = StereoEngine(cfg, device=dev)
+    want = {k: 3 * v for k, v in expected_launches(cfg, H, W).items()}
+    ck = tmp / "progress.jsonl"
+    t0 = time.perf_counter()
+    if not native.available():
+        fail("native: the library did not build or load")
+    out["native_build_s"] = time.perf_counter() - t0
+    print(f"native library built and loaded in {out['native_build_s']:.2f}"
+          f" s -> {native.bindings.library_path()}")
+
+    def run(label, prefetch, checkpoint=None, n_want=want):
+        dump = tmp / label
+        runner = BatchRunner(eng, calibration=calib, out_dir=str(dump),
+                             save_clouds=True, prefetch=prefetch,
+                             checkpoint_path=checkpoint, dump_ext=".npy")
+        cap = ImageListCapture(str(man), camera_info_left=cal[0],
+                               camera_info_right=cal[1])
+        res, secs, _ = counted(f"runner {label}", lambda: runner.run(cap),
+                               n_want)
+        return res, secs, dump
+
+    for turn, prefetch in enumerate((True, False, False, True)):
+        label = f"{'prefetch' if prefetch else 'no_prefetch'}_{turn}"
+        # the last run without prefetch keeps its dumps for the resume
+        res, secs, dump = run(label, prefetch, str(ck) if turn == 2 else None)
+        if [r.index for r in res] != [0, 1, 2]:
+            fail(f"runner {label}: pairs {[r.index for r in res]}")
+        for tag, plane in zip("HVC", near_ref):
+            if not np.array_equal(np.load(res[0].dump_paths[tag]),
+                                  plane.cpu().numpy()):
+                fail(f"runner {label}: pair 0's {tag} dump differs from "
+                     f"(a)")
+        points = [pcd_points(str(dump / f"cloud_{i}.pcd")) for i in range(3)]
+        if points != [H * W] * 3:
+            fail(f"runner {label}: PCD points {points}")
+        rows = [{"match_s": r.match_seconds, "dump_s": r.dump_seconds,
+                 "cloud_s": r.cloud_seconds} for r in res]
+        print(f"runner {label}: {3 / secs:.3f} pairs/s ({secs:.3f} s for 3)"
+              f"; pair 0's dumps equal (a); PCDs of {points[0]} points; per"
+              f" pair match/dump/cloud+PCD s " + " ".join(
+                  f"{x['match_s']:.4f}/{x['dump_s']:.3f}/{x['cloud_s']:.3f}"
+                  for x in rows))
+        out[f"runner_{label}"] = {"seconds": secs, "pairs_per_s": 3 / secs,
+                                  "pairs": rows, "pcd_points": points}
+        if turn != 2:
+            shutil.rmtree(dump)
+    res, _, _ = run("resume", False, str(ck), n_want={})
+    if res:
+        fail(f"runner resume: reran pairs {[r.index for r in res]}")
+    print("runner resume: the checkpoint skips all 3 pairs")
+    shutil.rmtree(tmp / "no_prefetch_2")
+    runs = {p: [v["seconds"] for k, v in out.items()
+                if k.startswith(f"runner_{p}_")]
+            for p in ("prefetch", "no_prefetch")}
+    print("runner pairs/s " + " ".join(
+        f"{p}={[round(3 / x, 3) for x in v]}" for p, v in runs.items()))
+
+    def profiled():
+        runner = BatchRunner(eng, calibration=calib,
+                             out_dir=str(tmp / "profiled"), save_clouds=True,
+                             dump_ext=".npy")
+        return runner.run(ImageListCapture(str(man)))
+
+    out["runner_profile"] = profile_match(
+        profiled, statistics.median(runs["prefetch"]), "runner prefetch")
+    shutil.rmtree(tmp / "profiled")
+
+    # pair 0 by stage, each on its own (host clock, synchronised)
+    stages = {}
+
+    def stage(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = fn()
+        torch.cuda.synchronize()
+        stages[name] = time.perf_counter() - t0
+        return r
+
+    imgs = stage("load", lambda: [load_image(p) for p in paths[:2]])
+    dev_imgs = stage("h2d", lambda: [torch.from_numpy(a).to(dev)
+                                     for a in imgs])
+    res = stage("match", lambda: eng.match(*dev_imgs))
+    from ug_stereomatcher_tpu_torch.io import save_disparity_maps
+    stage("dump", lambda: save_disparity_maps(res, str(tmp / "stage"),
+                                              ext=".npy"))
+    cloud = stage("cloud", lambda: geom.disparity_to_pointcloud(
+        calib, res.disparity_h, res.disparity_v, imgs[0]))
+    pcd = str(tmp / "stage" / "native.pcd")
+    stage("pcd_write", lambda: native.write_pcd(pcd, cloud.xyz, cloud.rgb))
+    stage("pcd_write_numpy", lambda: geom.save_pcd(
+        str(tmp / "stage" / "numpy.pcd"), cloud))
+    same = (Path(pcd).read_bytes()
+            == (tmp / "stage" / "numpy.pcd").read_bytes())
+    print("runner pair 0 by stage s " + " ".join(
+        f"{k}={v:.4f}" for k, v in stages.items())
+          + f"; native PCD equals geom.save_pcd's bytes: {same}")
+    if not same:
+        fail("native: write_pcd differs from geom.save_pcd")
+    out["pair0_stages_s"] = stages
+    out["native_available"] = True
+    shutil.rmtree(tmp / "stage")
+
+
+def service_phase(dev, cfg, left, right, near_ref, out: dict) -> None:
+    """Phase 3e, the service and the supervisor: DisparityService planes
+    equal (a) bit for bit and, in the foveated mode, match_foveated's
+    stacks; the default EngineSupervisor (StereoEngine() on the card)
+    returns for full, foveated and hierarchical."""
+    from ug_stereomatcher_tpu_torch import StereoEngine
+    from ug_stereomatcher_tpu_torch.pipeline import (DisparityService,
+                                                     EngineSupervisor)
+    from ug_stereomatcher_tpu_torch.pipeline.messages import (
+        GetDisparitiesRequest)
+
+    eng = StereoEngine(cfg, device=dev)
+    req = GetDisparitiesRequest(left=left, right=right)
+    rsp, secs, counts = counted("service full", lambda: DisparityService(
+        eng)(req), expected_launches(cfg, H, W))
+    for msg, plane in zip((rsp.disp_h, rsp.disp_v, rsp.disp_c), near_ref):
+        if not np.array_equal(msg.image, plane.cpu().numpy()):
+            fail("service full: a plane differs from (a)")
+    ref = eng.match_foveated(left, right)
+    rsp, fsecs, fcounts = counted(
+        "service foveated", lambda: DisparityService(eng, foveated=True)(req),
+        expected_launches(cfg, H, W, foveated=True))
+    for msg, plane in zip((rsp.fdisp_h, rsp.fdisp_v, rsp.fdisp_c),
+                          (ref.stack_h, ref.stack_v, ref.stack_c)):
+        if not np.array_equal(msg.image_stack, plane.cpu().numpy()):
+            fail("service foveated: a stack differs from match_foveated")
+    print("service: full planes equal (a), foveated stacks equal "
+          "match_foveated, bit for bit")
+    sup = EngineSupervisor()
+    if sup.engine.device.type != "cuda":
+        fail(f"supervisor: default engine on {sup.engine.device}")
+    times = {}
+    for mode in ("full", "foveated", "hierarchical"):
+        t0 = time.perf_counter()
+        r = sup.match(left, right, mode=mode)
+        times[mode] = time.perf_counter() - t0
+        shape = (tuple(r.stack_h.shape) if mode == "foveated"
+                 else tuple(r.disparity_h.shape))
+        print(f"supervisor {mode}: {shape} in {times[mode]:.4f} s")
+    if (sup.stats.frames, sup.stats.failures) != (3, 0):
+        fail(f"supervisor: stats {sup.stats}")
+    out["service"] = {"full_s": secs, "foveated_s": fsecs,
+                      "launches": counts, "foveated_launches": fcounts,
+                      "supervisor_s": times}
+
+
+def cli_phase(left_np, right_np, near_ref, tmp: Path, out: dict) -> None:
+    """Phase 3e, the command line in subprocesses (process start, the
+    imports and the cached kernel build included): match to .npy dumps,
+    pair 0's H equal to (a), and cloud to a PCD of 16.1 M points."""
+    repo = Path(__file__).resolve().parent
+    lp, rp = tmp / "l0.npy", tmp / "r0.npy"
+    rig = verged_rig()
+    cal = [write_camera_xml(tmp / f"cli_cal{s}.xml", c)
+           for s, c in (("L", rig.left), ("R", rig.right))]
+    runs = {
+        "match": ["match", str(lp), str(rp), "-o", str(tmp / "cli"),
+                  "--ext", ".npy"],
+        "cloud": ["cloud", str(lp), str(rp), "--cal-left", cal[0],
+                  "--cal-right", cal[1], "-o", str(tmp / "cli.pcd")],
+    }
+    for name, argv in runs.items():
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m",
+                               "ug_stereomatcher_tpu_torch", *argv],
+                              cwd=repo, capture_output=True, text=True,
+                              timeout=300)
+        wall = time.perf_counter() - t0
+        if proc.returncode != 0:
+            fail(f"cli {name}: rc {proc.returncode}: {proc.stderr[-2000:]}")
+        payload = json.loads(proc.stdout.strip().splitlines()[-1])
+        if name == "match":
+            got = np.load(payload["outputs"]["H"])
+            if not np.array_equal(got, near_ref[0].cpu().numpy()):
+                fail("cli match: H differs from (a)")
+        elif pcd_points(payload["output"]) != H * W:
+            fail(f"cli cloud: {payload}")
+        print(f"cli {name}: rc 0 in {wall:.2f} s wall (process start "
+              f"included) {json.dumps(payload)[:160]}")
+        out[f"cli_{name}"] = {"wall_s": wall, "payload": payload}
+
+
+def eval_phase(dev, out: dict) -> None:
+    """Phase 3e, the accuracy harness: accuracy_table(192, 256) on the
+    card against the per-scene gates and against the same table on the
+    CPU; evaluate_occlusion in both modes (matched above occluded
+    confidence)."""
+    from ug_stereomatcher_tpu_torch import MatcherConfig, StereoEngine
+    from ug_stereomatcher_tpu_torch import eval as ev
+
+    t0 = time.perf_counter()
+    card = ev.accuracy_table(192, 256, device=dev)
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cpu = ev.accuracy_table(192, 256, device="cpu")
+    cpu_s = time.perf_counter() - t0
+    rows = []
+    for interp, gates in EPE_GATES.items():
+        med_tol, bad_tol = EPE_CARD_VS_CPU[interp]
+        for scene, (med_max, bad_max) in gates.items():
+            c, p = card[interp][scene], cpu[interp][scene]
+            d_med = abs(c.median_epe - p.median_epe)
+            d_bad = abs(c.bad_1_0 - p.bad_1_0)
+            rows.append({"interp": interp, "scene": scene,
+                         "card": c.as_dict(), "cpu": p.as_dict(),
+                         "d_median": d_med, "d_bad_1_0": d_bad})
+            print(f"eval {interp:8s} {scene:8s} card median "
+                  f"{c.median_epe:.6f} bad1 {c.bad_1_0:.6f} | cpu "
+                  f"{p.median_epe:.6f} {p.bad_1_0:.6f} | d {d_med:.6f} "
+                  f"{d_bad:.6f}")
+            if not (c.median_epe < med_max and c.bad_1_0 < bad_max):
+                fail(f"eval {interp} {scene}: gates ({med_max}, {bad_max})"
+                     f" {c.as_dict()}")
+            if d_med > med_tol or (bad_tol is not None and d_bad > bad_tol):
+                fail(f"eval {interp} {scene}: card and CPU differ by "
+                     f"{d_med} / {d_bad}")
+    for scene in EPE_GATES["nearest"]:
+        if not (card["bilinear"][scene].median_epe
+                < card["nearest"][scene].median_epe):
+            fail(f"eval {scene}: bilinear not ahead of nearest")
+    occ = {}
+    for interp in ("nearest", "bilinear"):
+        r = ev.evaluate_occlusion(StereoEngine(MatcherConfig(interp=interp),
+                                               device=dev))
+        occ[interp] = r.as_dict()
+        print(f"eval occlusion {interp}: matched median EPE "
+              f"{r.matched_epe.median_epe:.4f}, confidence matched "
+              f"{r.mean_conf_matched:.4f} occluded "
+              f"{r.mean_conf_occluded:.4f}")
+        if not r.mean_conf_matched > r.mean_conf_occluded:
+            fail(f"eval occlusion {interp}: no confidence gap")
+    print(f"eval: the card's table passes the gates and agrees with the "
+          f"CPU's; {card_s:.2f} s on the card, {cpu_s:.2f} s on the CPU")
+    out["eval"] = {"table": rows, "occlusion": occ, "card_s": card_s,
+                   "cpu_s": cpu_s}
+
+
+def pipeline_phase(dev, cfg, left, right, left_np, right_np, near_ref,
+                   report: dict) -> None:
+    """Phase 3e: the runner, the service and the supervisor, the command
+    line and the accuracy harness, writing only .npy, .txt, .json, .xml
+    and .pcd files into a temporary directory."""
+    import tempfile
+
+    out = report["pipeline"] = {}
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="ugsm_smoke_") as d:
+        tmp = Path(d)
+        runner_phase(dev, cfg, left_np, right_np, near_ref, tmp, out)
+        service_phase(dev, cfg, left, right, near_ref, out)
+        torch.cuda.empty_cache()
+        cli_phase(left_np, right_np, near_ref, tmp, out)
+    eval_phase(dev, out)
+    out["wall_s"] = time.perf_counter() - t0
+    print(f"pipeline phase {out['wall_s']:.1f} s")
+
+
 # name -> (source in csrc/, the TPU kernel's pallas_call it replaces,
 #          which slice's launch count it reports[, the launch counter's
 #          name where it is not the kernel's])
@@ -1784,6 +2159,7 @@ def main() -> int:
     mode2_slices(dev, cfg, bil, left, right, slices)
     extras(dev, cfg, bil, left, right, left_np, near_ref, slices, kernels,
            report)
+    pipeline_phase(dev, cfg, left, right, left_np, right_np, near_ref, report)
     del near_ref
     level_table(dev, cfg, left, right, report)
     lockstep_level(dev, cfg, left, right, report)

@@ -110,7 +110,13 @@ def test_import_leaves_jax_out():
             "ug_stereomatcher_tpu_torch.ops.cuda._build, "
             "ug_stereomatcher_tpu_torch.ops.consistency, "
             "ug_stereomatcher_tpu_torch.ops.convergence, "
-            "ug_stereomatcher_tpu_torch.geom; "
+            "ug_stereomatcher_tpu_torch.geom, "
+            "ug_stereomatcher_tpu_torch.eval, ug_stereomatcher_tpu_torch.io, "
+            "ug_stereomatcher_tpu_torch.io.viz, "
+            "ug_stereomatcher_tpu_torch.native, "
+            "ug_stereomatcher_tpu_torch.pipeline, "
+            "ug_stereomatcher_tpu_torch.cli, "
+            "ug_stereomatcher_tpu_torch.__main__; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'ug_stereomatcher_tpu.'))"
             " or m == 'ug_stereomatcher_tpu']; "

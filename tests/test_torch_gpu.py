@@ -21,6 +21,9 @@ Extras and geometry: early exit on the card against the CPU engine under
 the quantile rule, the left-right check through one warp launch on a
 2-plane stack, profile_match equal to match bit for bit, triangulation
 under a relative-quantile rule and the range-map resizes against the CPU.
+Host layers: dumps, the service, epe_metrics and the colour panel on
+results that lie on the card, BatchRunner's dumps equal to match, and
+``python -m ug_stereomatcher_tpu_torch match --device cuda``.
 """
 
 import numpy as np
@@ -692,3 +695,85 @@ def test_geometry_on_card_matches_cpu(cuda):
     torch.testing.assert_close(zc.cpu(), _resize(z.cpu(), 65, 98, 5.0,
                                                  "cubic"),
                                rtol=1e-6, atol=0)
+
+
+# ------------------------------------------- host layers on card results
+def test_host_layers_take_results_on_the_card(cuda, tmp_path):
+    """Dumps, the service, epe_metrics and the colour panel bring CUDA
+    planes to the host (np.asarray of a CUDA tensor raises)."""
+    from ug_stereomatcher_tpu_torch import eval as tev
+    from ug_stereomatcher_tpu_torch import io as tio
+    from ug_stereomatcher_tpu_torch.io import viz
+    from ug_stereomatcher_tpu_torch.pipeline import DisparityService
+    from ug_stereomatcher_tpu_torch.pipeline.messages import (
+        GetDisparitiesRequest)
+    left, right, gh, gv = tev.synthetic_scene("sine", 120, 168)
+    eng = StereoEngine(MatcherConfig(fovea_level=3), device="cuda")
+    res = eng.match(left, right)
+    assert res.disparity_h.is_cuda
+    paths = tio.save_disparity_maps(res, str(tmp_path / "d"), ext=".npy")
+    planes = (res.disparity_h, res.disparity_v, res.confidence)
+    for tag, plane in zip("HVC", planes):
+        assert np.array_equal(np.load(paths[tag]), plane.cpu().numpy())
+    rsp = DisparityService(eng)(GetDisparitiesRequest(left=left,
+                                                      right=right))
+    for msg, plane in zip((rsp.disp_h, rsp.disp_v, rsp.disp_c), planes):
+        assert np.array_equal(msg.image, plane.cpu().numpy())
+    st = eng.match_foveated(left, right)
+    rsp = DisparityService(eng, foveated=True)(
+        GetDisparitiesRequest(left=left, right=right))
+    assert np.array_equal(rsp.fdisp_h.image_stack, st.stack_h.cpu().numpy())
+    rep = tev.epe_metrics(res.disparity_h, res.disparity_v, gh, gv,
+                          margin=16)
+    assert rep == tev.epe_metrics(res.disparity_h.cpu(),
+                                  res.disparity_v.cpu(), gh, gv, margin=16)
+    panel = np.load(viz.render_panel(res, str(tmp_path / "p.npy")))
+    assert panel.shape == (120, 3 * 168, 3)
+
+
+def test_batch_runner_on_card_dumps_equal_match(cuda, tmp_path):
+    from ug_stereomatcher_tpu_torch.pipeline import (BatchRunner,
+                                                     ImageListCapture)
+    paths, pairs = [], []
+    for seed in (0, 1):
+        pair = scene.make_pair(816, 1232, seed=seed)
+        for side, img in zip("lr", pair):
+            p = str(tmp_path / f"{side}{seed}.npy")
+            np.save(p, img)
+            paths.append(p)
+        pairs.append(pair)
+    man = tmp_path / "pairs.txt"
+    man.write_text("\n".join(paths))
+    eng = StereoEngine(device="cuda")
+    out = BatchRunner(eng, out_dir=str(tmp_path / "o"), dump_ext=".npy").run(
+        ImageListCapture(str(man)))
+    assert [r.index for r in out] == [0, 1]
+    for r, (left, right) in zip(out, pairs):
+        ref = eng.match(left, right)
+        for tag, plane in zip("HVC", (ref.disparity_h, ref.disparity_v,
+                                      ref.confidence)):
+            assert np.array_equal(np.load(r.dump_paths[tag]),
+                                  plane.cpu().numpy())
+
+
+def test_cli_on_card(cuda, tmp_path):
+    """python -m ug_stereomatcher_tpu_torch match --device cuda in a fresh
+    process writes the planes of StereoEngine.match on the card."""
+    import json
+    import os
+    import subprocess
+    import sys
+    left, right = scene.make_pair(240, 320)
+    np.save(tmp_path / "l.npy", left)
+    np.save(tmp_path / "r.npy", right)
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    proc = subprocess.run(
+        [sys.executable, "-m", "ug_stereomatcher_tpu_torch", "match",
+         str(tmp_path / "l.npy"), str(tmp_path / "r.npy"), "-o",
+         str(tmp_path / "o"), "--ext", ".npy", "--device", "cuda"],
+        cwd=repo, capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 0, proc.stderr
+    outputs = json.loads(proc.stdout.strip().splitlines()[-1])["outputs"]
+    ref = StereoEngine(device="cuda").match(left, right)
+    assert np.array_equal(np.load(outputs["H"]),
+                          ref.disparity_h.cpu().numpy())

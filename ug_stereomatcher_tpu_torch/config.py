@@ -140,6 +140,33 @@ class MatcherConfig:
             raise ValueError(f"unknown MatcherConfig fields {sorted(unknown)}")
         return cls(**kept)
 
+    @classmethod
+    def from_file(cls, path: str) -> "MatcherConfig":
+        """Load a config from a YAML or JSON file, the launch-file /
+        parameter-server analog (ug_stereomatcher_tpu/config.py:304-325).
+        The TPU-only fields are dropped, as in ``from_reference``, so a
+        file written for the JAX package loads; any other unknown key
+        raises, so a typo does not fall back to a default.  YAML needs
+        PyYAML, imported at first use."""
+        import json
+
+        with open(path) as fh:
+            if path.endswith((".yaml", ".yml")):
+                import yaml
+                data = yaml.safe_load(fh) or {}
+            else:
+                data = json.load(fh)
+        if not isinstance(data, dict):
+            raise ValueError(f"{path}: expected a mapping of config fields")
+        valid = {f.name for f in dataclasses.fields(cls)}
+        kept = {k: v for k, v in data.items() if k not in TPU_ONLY_FIELDS}
+        unknown = set(kept) - valid
+        if unknown:
+            raise ValueError(
+                f"{path}: unknown config fields {sorted(unknown)}; valid "
+                f"fields: {sorted(valid)}")
+        return cls(**kept)
+
     def num_levels(self, height: int, width: int) -> int:
         """Usable pyramid levels: no level dimension below min_dim."""
         n = 0
