@@ -1823,6 +1823,311 @@ def pipeline_phase(dev, cfg, left, right, left_np, right_np, near_ref,
     print(f"pipeline phase {out['wall_s']:.1f} s")
 
 
+# Phase 3f sizes: the JAX bench's batched throughput (bench.py:406-408)
+# and scaling probe (bench.py:463), and the processes' pairs
+TPUT_H, TPUT_W, TPUT_BATCH = 815, 1231, 8
+SCALE_H, SCALE_W = 408, 616
+PROC_H, PROC_W, PROC_PAIRS = 816, 1232, 3
+TRACE_KERNELS = ("warp_kernel", "direction_kernel", "smooth_chunk_kernel")
+
+
+def synchronize_all() -> None:
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(i)
+
+
+def batched_throughput(dev, cfg, out: dict) -> None:
+    """Phase 3f (a): StereoEngine.match_batch of 8 pairs at 815 x 1231
+    (seeds SEED..SEED+7), mode 1 and foveated=True, in turn on this card
+    (over a pairs-only mesh of the cards where there are several): each
+    pair's launches those of a match, the value gates on pair 0, pairs/s
+    from the least of three warm batches, and the busy share of one batch
+    under the profiler."""
+    from ug_stereomatcher_tpu_torch import StereoEngine, scene
+    from ug_stereomatcher_tpu_torch.parallel import make_mesh, mesh_shape_for
+
+    n = torch.cuda.device_count()
+    mesh = make_mesh(*mesh_shape_for(n, n_pairs=TPUT_BATCH)) if n > 1 else None
+    pairs = [scene.make_pair(TPUT_H, TPUT_W, seed=SEED + s)
+             for s in range(TPUT_BATCH)]
+    left = torch.from_numpy(np.stack([p[0] for p in pairs])).to(dev)
+    right = torch.from_numpy(np.stack([p[1] for p in pairs])).to(dev)
+    eng = StereoEngine(cfg, device=dev)
+    fh, fw = cfg.fovea_dims(TPUT_H, TPUT_W)
+    for label, fov in (("batched_throughput", False),
+                       ("foveated_throughput", True)):
+        def call():
+            res = eng.match_batch(left, right, mesh=mesh, foveated=fov)
+            synchronize_all()
+            return res
+        per_pair = expected_launches(cfg, TPUT_H, TPUT_W, foveated=fov)
+        res, first_s, counts, _ = first_call(
+            dev, label, call, {k: TPUT_BATCH * v for k, v in per_pair.items()})
+        if fov:
+            stack = torch.stack([res.stack_h[0], res.stack_v[0],
+                                 res.stack_c[0]])
+            check_planes(label, stack, (cfg.fovea_level * fh, fw))
+            value_gates(f"{label} pair 0 level 0", stack[:, :fh], 32, 0.5)
+        else:
+            check_planes(label, res.triplet[:, 0], (TPUT_H, TPUT_W))
+            value_gates(f"{label} pair 0", res.triplet[:, 0], 64, 0.5)
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            call()
+            times.append(time.perf_counter() - t0)
+        sec = min(times)
+        print(f"{label} {TPUT_H}x{TPUT_W} batch {TPUT_BATCH} on "
+              f"{'one card' if mesh is None else mesh.shape}: "
+              f"pairs_per_s={TPUT_BATCH / sec:.3f} seconds_per_batch="
+              f"{sec:.4f} first_s={first_s:.3f} "
+              f"times={[round(t, 4) for t in times]}")
+        out[label] = {"shape": [TPUT_H, TPUT_W], "batch": TPUT_BATCH,
+                      "seconds_per_batch": sec, "times_s": times,
+                      "pairs_per_s": TPUT_BATCH / sec, "first_s": first_s,
+                      "launches": counts,
+                      "profile": profile_match(call, sec, label)}
+
+
+def scaling_curves(dev, out: dict) -> None:
+    """Phase 3f (b): measure_throughput at 408 x 616 in the dp, sp, hybrid
+    and foveated dp families, at 1, 2 and 4 entries of this card (and over
+    the cards where there are several), every point printed; then one sp
+    batch on four shards of this card with its launches against the
+    config's, its profile, and the wall and the host cost (device idle)
+    per shard-iteration."""
+    import dataclasses
+
+    from ug_stereomatcher_tpu_torch import MatcherConfig
+    from ug_stereomatcher_tpu_torch.ops.cuda import _build
+    from ug_stereomatcher_tpu_torch.parallel import (
+        make_batch_matcher, make_mesh, measure_throughput)
+
+    curves = out["curves"] = {}
+    cards = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    setups = [("one_card", [dev] * 4, [1, 2, 4])]
+    if len(cards) > 1:
+        setups.append(("cards", cards, None))
+    cfg = MatcherConfig()
+    for where, devices, counts in setups:
+        for family in ("dp", "sp", "hybrid", "dp_fov"):
+            pts = measure_throughput(
+                SCALE_H, SCALE_W, device_counts=counts, cfg=cfg, repeats=3,
+                mode=family.removesuffix("_fov"),
+                foveated=family.endswith("_fov"), devices=devices)
+            for pt in pts:
+                print(f"scaling {where} {family} devices={pt.n_devices} "
+                      f"mesh={pt.mesh_shape} batch={pt.batch} "
+                      f"pairs_per_s={pt.pairs_per_second:.3f} "
+                      f"seconds_per_batch={pt.seconds_per_batch:.5f} "
+                      f"efficiency={pt.scaling_efficiency:.3f} "
+                      f"oversubscribed={pt.oversubscribed}")
+            curves[f"{where}_{family}"] = [dataclasses.asdict(pt)
+                                           for pt in pts]
+    sp4 = next(pt for pt in curves["one_card_sp"] if pt["n_devices"] == 4)
+    mesh = make_mesh(1, 4, devices=[dev] * 4)
+    fn = make_batch_matcher(cfg, mesh)
+    rng = np.random.RandomState(0)
+    left = torch.from_numpy(
+        rng.rand(1, 3, SCALE_H, SCALE_W).astype(np.float32) * 255).to(dev)
+    right = torch.roll(left, 2, dims=-1)
+    _, _, launches = counted(
+        "scaling sp 4 shards", lambda: fn(left, right),
+        expected_mesh_launches(cfg, SCALE_H, SCALE_W, [dev] * 4))
+    shard_iters = launches["warp_row_halo"]
+    prof = profile_match(lambda: fn(left, right), sp4["seconds_per_batch"],
+                         "scaling sp 4 shards")
+    wall_ms = sp4["seconds_per_batch"] * 1e3
+    wall_per = wall_ms / shard_iters
+    idle_per = (wall_ms - prof["device_busy_ms"]) / shard_iters
+    print(f"scaling sp 4 shards of one card at {SCALE_H}x{SCALE_W}: "
+          f"{shard_iters} shard-iterations, wall {wall_per:.4f} ms per "
+          f"shard-iteration (the batch's wall over them), host cost "
+          f"{idle_per:.4f} ms per shard-iteration (the wall less the "
+          f"profiled device-busy time, over them), busy share "
+          f"{prof['busy_share']:.3f}")
+    out["sp4_host"] = {"shard_iterations": shard_iters,
+                       "wall_ms_per_shard_iteration": wall_per,
+                       "idle_ms_per_shard_iteration": idle_per,
+                       "launches": launches, "profile": prof}
+
+
+def process_child(backend: str) -> int:
+    """One rank of phase 3f (c) or (d), started by ``run_ranks`` with
+    torchrun's four variables: the process group (``backend="gloo"``
+    passed explicitly, or the default for a card: NCCL), pod_mesh() of
+    the group, and three 816 x 1232 pairs (seeds 0-2) through
+    match_batch in mode 1 and mode 2, each returned pair against
+    StereoEngine.match (match_foveated's stack) of that pair in this
+    process, bit for bit, and this rank's launches those of its share.
+    Prints one JSON line; exits 1 on a mismatch."""
+    import torch.distributed as dist
+
+    from ug_stereomatcher_tpu_torch import StereoEngine, MatcherConfig, scene
+    from ug_stereomatcher_tpu_torch.ops.cuda import _build
+    from ug_stereomatcher_tpu_torch.parallel import (
+        initialize_distributed, pod_mesh)
+
+    torch.cuda.set_device(0)
+    initialize_distributed(device="cuda",
+                           backend="gloo" if backend == "gloo" else None)
+    rank, world = dist.get_rank(), dist.get_world_size()
+    print(f"rank {rank} of {world}: backend {dist.get_backend()}"
+          + (" (passed explicitly: NCCL refuses two ranks on one card)"
+             if backend == "gloo" else " (the default for a card)"),
+          file=sys.stderr)
+    cfg = MatcherConfig()
+    mesh = pod_mesh()
+    pairs = [scene.make_pair(PROC_H, PROC_W, seed=s)
+             for s in range(PROC_PAIRS)]
+    left = np.stack([p[0] for p in pairs])
+    right = np.stack([p[1] for p in pairs])
+    eng = StereoEngine(cfg, device="cuda")
+    mine = [i for i in range(PROC_PAIRS)
+            if mesh.owner(i % mesh.shape["pairs"]) == rank]
+    report = {"rank": rank, "world": world, "backend": dist.get_backend(),
+              "mesh": mesh.shape, "local_pairs": mesh.local_pairs(),
+              "pairs_matched": mine, "device": torch.cuda.get_device_name(0)}
+    ok = True
+    for mode, fov in (("mode1", False), ("mode2", True)):
+        want = {k: len(mine) * v for k, v in expected_launches(
+            cfg, PROC_H, PROC_W, foveated=fov).items()}
+        torch.cuda.synchronize()
+        _build.reset_launch_counts()
+        res = eng.match_batch(left, right, mesh=mesh, foveated=fov)
+        torch.cuda.synchronize()
+        counts = _build.launch_counts()
+        dist.barrier()
+        t0 = time.perf_counter()
+        eng.match_batch(left, right, mesh=mesh, foveated=fov)
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
+        equal, single_s = [], 0.0
+        for i in range(PROC_PAIRS):
+            t0 = time.perf_counter()
+            if fov:
+                s = eng.match_foveated(left[i], right[i])
+                ref = torch.stack([s.stack_h, s.stack_v, s.stack_c])
+                got = torch.stack([res.stack_h[i], res.stack_v[i],
+                                   res.stack_c[i]])
+            else:
+                ref = eng.match(left[i], right[i]).triplet
+                got = res.triplet[:, i]
+            torch.cuda.synchronize()
+            single_s += time.perf_counter() - t0
+            equal.append(bool(torch.equal(got, ref)))
+        ok = ok and all(equal) and counts == want
+        report[mode] = {"equal": equal, "launches": counts,
+                        "expected_launches": want, "warm_batch_s": warm_s,
+                        "single_sum_s": single_s}
+    dist.destroy_process_group()
+    print(json.dumps(report))
+    return 0 if ok else 1
+
+
+def run_ranks(label: str, world: int, backend: str, out: dict,
+              per_rank_env=None, timeout: int = 600) -> None:
+    """Start ``world`` ranks of process_child on a free local port and
+    fail unless every rank exits 0 with every pair equal."""
+    import os
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    env = {**os.environ, "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(port),
+           "WORLD_SIZE": str(world)}
+    procs = [subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), "--process-child",
+         backend],
+        env={**env, "RANK": str(r), **(per_rank_env(r) if per_rank_env
+                                       else {})},
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for r in range(world)]
+    t0 = time.perf_counter()
+    results = []
+    try:
+        for p in procs:
+            results.append(p.communicate(timeout=timeout))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    wall = time.perf_counter() - t0
+    reports = []
+    for r, (p, (stdout, stderr)) in enumerate(zip(procs, results)):
+        for line in stderr.splitlines():
+            if line.startswith("rank "):
+                print(f"{label} {line}")
+        if p.returncode != 0:
+            fail(f"{label}: rank {r} exited {p.returncode}:\n"
+                 f"{stdout[-2000:]}\n{stderr[-3000:]}")
+        rep = json.loads(stdout.strip().splitlines()[-1])
+        reports.append(rep)
+        for mode in ("mode1", "mode2"):
+            m = rep[mode]
+            launches = json.dumps(m["launches"], sort_keys=True)
+            print(f"{label} rank {r} {mode}: pairs {rep['pairs_matched']} "
+                  f"matched here, launches {launches}, every pair equal to "
+                  f"the single-process match: {m['equal']}, warm batch "
+                  f"{m['warm_batch_s']:.4f} s (three single matches "
+                  f"{m['single_sum_s']:.4f} s)")
+    print(f"{label}: {world} rank(s) over {reports[0]['backend']}, "
+          f"{wall:.1f} s wall")
+    out[label] = {"world": world, "wall_s": wall, "ranks": reports}
+
+
+def trace_phase(dev, cfg, left, right, out: dict) -> None:
+    """Phase 3f (e): profiling.device_trace around one warm 16 MP match;
+    the trace file must exist and name the warp, direction and smooth
+    kernels."""
+    import tempfile
+
+    from ug_stereomatcher_tpu_torch import StereoEngine
+    from ug_stereomatcher_tpu_torch.profiling import device_trace
+
+    eng = StereoEngine(cfg, device=dev)
+    eng.match(left, right)
+    with tempfile.TemporaryDirectory(prefix="ugsm_trace_") as d:
+        with device_trace(d):
+            eng.match(left, right)
+        files = list(Path(d).glob("trace_*.json"))
+        if len(files) != 1:
+            fail(f"device_trace wrote {files}")
+        size = files[0].stat().st_size
+        events = json.loads(files[0].read_text())["traceEvents"]
+    kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+    named = {k: sum(k in n for n in kernels) for k in TRACE_KERNELS}
+    print(f"device_trace: {size} bytes, {len(kernels)} kernel events, "
+          f"{json.dumps(named)}")
+    if not all(named.values()):
+        fail(f"device_trace: the trace misses kernels: {named}")
+    out["trace"] = {"bytes": size, "kernel_events": len(kernels),
+                    "named": named}
+
+
+def scaling_phase(dev, cfg, left, right, report: dict) -> None:
+    """Phase 3f: mesh scaling and processes."""
+    out = report["scaling"] = {}
+    t0 = time.perf_counter()
+    batched_throughput(dev, cfg, out)
+    torch.cuda.empty_cache()
+    scaling_curves(dev, out)
+    torch.cuda.empty_cache()
+    run_ranks("processes_gloo", 2, "gloo", out)
+    run_ranks("processes_nccl", 1, "nccl", out)
+    if torch.cuda.device_count() > 1:
+        run_ranks("processes_nccl_cards", 2, "nccl", out,
+                  lambda r: {"CUDA_VISIBLE_DEVICES": str(r)})
+    else:
+        print("processes_nccl_cards: one card, so two NCCL ranks on "
+              "separate cards do not run")
+    trace_phase(dev, cfg, left, right, out)
+    out["wall_s"] = time.perf_counter() - t0
+    print(f"scaling phase {out['wall_s']:.1f} s")
+
+
 # name -> (source in csrc/, the TPU kernel's pallas_call it replaces,
 #          which slice's launch count it reports[, the launch counter's
 #          name where it is not the kernel's])
@@ -2066,6 +2371,7 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=SEED,
                     help="seed of the scene, the inputs and the fields")
     ap.add_argument("--ab-child", help=argparse.SUPPRESS)
+    ap.add_argument("--process-child", help=argparse.SUPPRESS)
     ap.add_argument("--gates", help="time the match at these comma-"
                     "separated level-resident gates instead")
     args = ap.parse_args()
@@ -2078,6 +2384,8 @@ def main() -> int:
     if args.ab_child:
         print(json.dumps(ab_child(args.ab_child, args.matches)))
         return 0
+    if args.process_child:
+        return process_child(args.process_child)
     if args.ab:
         trees = [t.split("=", 1) for t in args.ab]
         if len(trees) < 2 or any(len(t) != 2 for t in trees):
@@ -2160,6 +2468,8 @@ def main() -> int:
     extras(dev, cfg, bil, left, right, left_np, near_ref, slices, kernels,
            report)
     pipeline_phase(dev, cfg, left, right, left_np, right_np, near_ref, report)
+    torch.cuda.empty_cache()
+    scaling_phase(dev, cfg, left, right, report)
     del near_ref
     level_table(dev, cfg, left, right, report)
     lockstep_level(dev, cfg, left, right, report)

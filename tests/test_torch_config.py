@@ -116,7 +116,10 @@ def test_import_leaves_jax_out():
             "ug_stereomatcher_tpu_torch.native, "
             "ug_stereomatcher_tpu_torch.pipeline, "
             "ug_stereomatcher_tpu_torch.cli, "
-            "ug_stereomatcher_tpu_torch.__main__; "
+            "ug_stereomatcher_tpu_torch.__main__, "
+            "ug_stereomatcher_tpu_torch.parallel.multihost, "
+            "ug_stereomatcher_tpu_torch.parallel.throughput, "
+            "ug_stereomatcher_tpu_torch.profiling; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'ug_stereomatcher_tpu.'))"
             " or m == 'ug_stereomatcher_tpu']; "

@@ -23,7 +23,8 @@ the quantile rule, the left-right check through one warp launch on a
 under a relative-quantile rule and the range-map resizes against the CPU.
 Host layers: dumps, the service, epe_metrics and the colour panel on
 results that lie on the card, BatchRunner's dumps equal to match, and
-``python -m ug_stereomatcher_tpu_torch match --device cuda``.
+``python -m ug_stereomatcher_tpu_torch match --device cuda``.  The
+scaling harness: measure_throughput dp on the card repeated.
 """
 
 import numpy as np
@@ -777,3 +778,12 @@ def test_cli_on_card(cuda, tmp_path):
     ref = StereoEngine(device="cuda").match(left, right)
     assert np.array_equal(np.load(outputs["H"]),
                           ref.disparity_h.cpu().numpy())
+
+
+# ------------------------------------------------------ scaling harness
+def test_measure_throughput_dp_on_one_card_repeated(cuda):
+    pts = par.measure_throughput(96, 128, device_counts=[1, 2], repeats=1,
+                                 devices=[cuda] * 2)
+    assert [p.mesh_shape for p in pts] == [(1, 1), (2, 1)]
+    assert all(p.pairs_per_second > 0 for p in pts)
+    assert [p.oversubscribed for p in pts] == [False, True]

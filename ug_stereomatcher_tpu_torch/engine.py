@@ -214,13 +214,16 @@ class StereoEngine:
         mesh (parallel.make_mesh) the pairs go over its pairs axis and, with
         more than one row, each pair is row-sharded over its group's rows
         (parallel/batch.py); the result lies on the mesh's first device and
-        equals ``match`` (``match_foveated``) per pair bit for bit."""
+        equals ``match`` (``match_foveated``) per pair bit for bit.  On a
+        mesh that spans processes (parallel.pod_mesh) every rank passes the
+        same batch, matches its own groups' pairs and gets the whole
+        result on its first local device."""
         from ug_stereomatcher_tpu_torch.parallel.batch import (
             make_batch_matcher)
 
         t0 = time.perf_counter()
         fn = make_batch_matcher(self.config, mesh, self.device, foveated)
-        dev = self.device if mesh is None else mesh.devices[0][0]
+        dev = self.device if mesh is None else mesh.local_devices()[0]
         lb = _to_bchw(left_batch, dev)
         rb = _to_bchw(right_batch, dev)
         if lb.shape != rb.shape:
@@ -231,7 +234,7 @@ class StereoEngine:
             _check_fovea(self.config, h, w)
         out = fn(lb, rb)
         self._record("match_batch", t0,
-                     None if mesh is None else mesh.distinct_devices())
+                     None if mesh is None else mesh.local_devices())
         if foveated:
             fov_h, fov_w = self.config.fovea_dims(h, w)
             return FoveatedStackResult(

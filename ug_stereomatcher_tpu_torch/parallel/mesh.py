@@ -2,19 +2,29 @@
 
 Counterpart of ``ug_stereomatcher_tpu/parallel/mesh.py``.  The JAX
 package's sharded engine is single-controller: one process drives every
-device of the mesh.  The port keeps that design: a shard is a tensor on
-its mesh device, a halo exchange is a row slice copied with ``.to``, and
-an all-gather is a ``torch.cat`` of such copies.  A device may appear
-more than once, as the JAX tests' virtual CPU devices do: ``[cpu] * 4``
-runs the sharded code in one process, and ``[cuda:0] * 4`` runs four
+device of the mesh.  The port keeps that design within a process: a shard
+is a tensor on its mesh device, a halo exchange is a row slice copied with
+``.to``, and an all-gather is a ``torch.cat`` of such copies.  A device may
+appear more than once, as the JAX tests' virtual CPU devices do: ``[cpu] *
+4`` runs the sharded code in one process, and ``[cuda:0] * 4`` runs four
 shards on one card with every halo copy real.
+
+Each entry of a mesh is a ``Slot``: its torch device, the rank of the
+process that drives it (``process_index``) and an ``id`` unique in the
+mesh, as a JAX device carries both.  ``make_mesh`` gives every entry to
+the calling process; ``multihost.pod_mesh`` builds a mesh whose pairs axis
+spans processes (parallel/batch.py then gathers the pairs over
+``torch.distributed``).  A rows-group never spans processes: its halo
+copies are local ``.to`` copies.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
+import torch.distributed as dist
 
 
 def mesh_shape_for(n_devices: int, n_pairs: Optional[int] = None
@@ -49,18 +59,58 @@ def _device(d) -> torch.device:
     return dev
 
 
+def process_index() -> int:
+    """This process's rank in the default ``torch.distributed`` group, or
+    0 where no group is initialised."""
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_rank()
+    return 0
+
+
+@dataclasses.dataclass(frozen=True)
+class Slot:
+    """One mesh entry: the torch device, the rank of the process that
+    drives it and an id unique in the mesh (JAX's ``process_index`` and
+    ``id`` of a device)."""
+
+    device: torch.device
+    process_index: int = 0
+    id: int = 0
+
+
+def _slot(d, rank: int, index: int) -> Slot:
+    if isinstance(d, Slot):
+        return dataclasses.replace(d, device=_device(d.device))
+    return Slot(_device(d), rank, index)
+
+
 class Mesh:
     """A (pairs, rows) grid of torch devices; a device may repeat.
 
     ``devices[p][r]`` runs row shard r of the pair that pairs-group p
-    matches; ``shape`` is ``{"pairs": P, "rows": R}`` as in the JAX mesh."""
+    matches; ``shape`` is ``{"pairs": P, "rows": R}`` as in the JAX mesh.
+    An entry given as a ``Slot`` keeps its owner and id; any other entry
+    (a torch device or its name) belongs to the calling process, with its
+    flat position as its id.  Raises ValueError where a rows-group spans
+    two processes."""
 
     def __init__(self, devices: Sequence[Sequence]):
-        self.devices: List[List[torch.device]] = [
-            [_device(d) for d in row] for row in devices]
-        widths = {len(row) for row in self.devices}
-        if not self.devices or len(widths) != 1 or 0 in widths:
+        rows = [list(row) for row in devices]
+        widths = {len(row) for row in rows}
+        if not rows or len(widths) != 1 or 0 in widths:
             raise ValueError("a mesh is a non-empty (pairs, rows) grid")
+        rank, width = process_index(), len(rows[0])
+        self.slots: List[List[Slot]] = [
+            [_slot(d, rank, p * width + r) for r, d in enumerate(row)]
+            for p, row in enumerate(rows)]
+        self.devices: List[List[torch.device]] = [
+            [s.device for s in row] for row in self.slots]
+        for p, row in enumerate(self.slots):
+            owners = sorted({s.process_index for s in row})
+            if len(owners) > 1:
+                raise ValueError(
+                    f"rows-group {p} spans processes {owners}: a rows axis "
+                    f"stays inside one process (its halo copies are local)")
 
     @property
     def shape(self) -> Dict[str, int]:
@@ -74,8 +124,35 @@ class Mesh:
         """Every device of the mesh once, in mesh order."""
         return list(dict.fromkeys(d for row in self.devices for d in row))
 
+    def process_indices(self) -> List[int]:
+        """The ranks that drive the mesh, ascending."""
+        return sorted({row[0].process_index for row in self.slots})
+
+    def spans_processes(self) -> bool:
+        """Whether more than one process drives the mesh.  A mesh with one
+        owner is driven whole by whichever process runs it."""
+        return len(self.process_indices()) > 1
+
+    def owner(self, pair: int) -> int:
+        """The rank that drives pairs-group ``pair``."""
+        return self.slots[pair][0].process_index
+
+    def local_pairs(self, rank: Optional[int] = None) -> List[int]:
+        """The pairs-groups that process ``rank`` (default: this one)
+        drives, ascending."""
+        rank = process_index() if rank is None else rank
+        return [p for p in range(len(self.slots)) if self.owner(p) == rank]
+
+    def local_devices(self) -> List[torch.device]:
+        """The devices this process drives when it runs the mesh, once
+        each, in mesh order: every device of a mesh with one owner, else
+        those of the groups ``local_pairs()`` names."""
+        pairs = (self.local_pairs() if self.spans_processes()
+                 else range(len(self.devices)))
+        return list(dict.fromkeys(d for p in pairs for d in self.devices[p]))
+
     def __repr__(self) -> str:
-        return f"Mesh({self.shape}, {self.devices})"
+        return f"Mesh({self.shape}, {self.slots})"
 
 
 def make_mesh(n_pairs_axis: int = 1, n_rows_axis: Optional[int] = None,

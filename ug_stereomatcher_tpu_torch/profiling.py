@@ -1,17 +1,23 @@
-"""Timing buckets, the counterpart of ``ug_stereomatcher_tpu/profiling.py``.
+"""Timing buckets and device traces, the counterpart of
+``ug_stereomatcher_tpu/profiling.py``.
 
 ``Timings`` keeps named wall-clock buckets with call counts.  Times taken
-on the host clock measure device work only when the caller synchronises
-first (``StereoEngine(sync_timing=True)``).
+on the host clock measure device work only where the device has finished
+before the clock stops: ``StereoEngine``'s entry points synchronise their
+devices before they record.  ``device_trace`` writes a ``torch.profiler``
+trace.
 """
 
 from __future__ import annotations
 
 import contextlib
 import json
+import os
 import time
 from collections import defaultdict
 from typing import Dict, Iterator
+
+import torch
 
 
 class Timings:
@@ -48,3 +54,24 @@ class Timings:
     def reset(self) -> None:
         self.total.clear()
         self.count.clear()
+
+
+@contextlib.contextmanager
+def device_trace(log_dir: str) -> Iterator[None]:
+    """Trace the block with ``torch.profiler``: CPU activity, and CUDA
+    activity where a card is present (the block's kernels and copies).
+    On exit the card is synchronised and a Chrome trace
+    (``trace_<pid>.json``, viewable in Perfetto or chrome://tracing) is
+    written into ``log_dir``.  A profiler failure raises."""
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(log_dir, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+    prof.export_chrome_trace(os.path.join(log_dir,
+                                          f"trace_{os.getpid()}.json"))
