@@ -25,7 +25,12 @@ Phases (any failure exits non-zero before the last line is printed):
    iterations) in both methods, and the windowed resample of a fovea
    transition (onto the centred window of the 576 x 870 grid) in both;
    each kernel's least possible time on the card (bound) and, where one
-   PyTorch call computes the same function, that call's time;
+   PyTorch call computes the same function, that call's time; every
+   case but the level kernel's also prints its device time alone
+   (device_ms, and library_device_ms for the PyTorch call: CUDA events
+   around the replay of a CUDA graph of 20 calls, over 20), beside ms,
+   the call as a caller sees it (3 back-to-back calls: where the host's
+   work is the longer, ms is the host's);
 3. slices: StereoEngine.match on the 1/f octave scene with a known 3 px
    shift at 3264 x 4928, (a) nearest with the level-resident gate, (b)
    nearest with every level per iteration, (c) bilinear; then
@@ -104,10 +109,15 @@ smooth field), direction and smooth (n = 0, 5 and 10) kernels at 16
 MP, the 6-plane zero-boundary blur of the stacked pyramid level, and
 the row-sharded direction and smooth (n = 10) on the middle shard of
 four; the level-resident kernel at levels 8 and 13 (nearest,
-replace_first off) and the nearest and bilinear resample at the sqrt(2)
-subsample of six stacked 16 MP planes, each with cuda_ms.  It prints a
-JSON line per process, the nvidia-smi line and per tree the median,
-least and greatest of each:
+replace_first off), blur, warp, direction and smooth at level 8 (call
+and device ms), and the nearest and bilinear resample at the 16 MP
+sqrt(2) and x2 subsamples of six stacked planes, the value-scaled
+upsample of three, the level-8 subsample, a point cloud's range map
+(x0.2) and the fovea window (resample_cases: call ms, device ms, the
+whole resample_tex call, the bound and F.interpolate), and the host µs
+of each step of the range-map call (host_costs).  It prints the
+nvidia-smi line and one line a number with each tree's median, least
+and greatest (the runs in full go to --out):
     python3 chip_smoke.py --ab parent=_smoke_checkout/parent --ab change=. \\
         [--rounds 2] [--matches 7] [--out FILE.json]
 
@@ -181,6 +191,16 @@ def cuda_ms(fn, samples: int = 5, per_sample: int = 3) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end) / per_sample)
     return statistics.median(times)
+
+
+def graph_ms(fn, n: int = 20) -> float:
+    """Device time of one ``fn()`` call in ms with the host out of the way:
+    CUDA events around the replay of a CUDA graph of ``n`` back-to-back
+    calls, over ``n`` (each launch's gap on the card included)."""
+    def calls():
+        for _ in range(n):
+            fn()
+    return cuda_ms(graph_replay(calls)) / n
 
 
 def bound(nbytes: float, ops: float):
@@ -364,10 +384,14 @@ def interpolate_resample(src, scale: float, out_hw, method: str):
 
 def compare(report: dict, name: str, tag: str, kernel, plain, args,
             rule: str = "exact", work=None, library=None,
-            timed: bool = True) -> None:
+            timed: bool = True, graph: bool = True) -> None:
     """Run ``kernel`` and ``plain`` on the same inputs, hold them to
     ``rule`` ("exact", "close" = the repo's quantile rule, "allclose" =
-    rtol=atol=1e-4), time both, and record the case under ``name``."""
+    rtol=atol=1e-4), time both, and record the case under ``name``.
+    ``ms`` is the call (CUDA events around back-to-back calls: the host's
+    work shows where it is longer than the kernel's); with ``graph``,
+    ``device_ms`` (and ``library_device_ms``) is the same call replayed
+    from a CUDA graph, the kernel's own time."""
     out = kernel(*args)
     ref = plain(*args)
     torch.cuda.synchronize()
@@ -399,10 +423,15 @@ def compare(report: dict, name: str, tag: str, kernel, plain, args,
         if work is not None:
             case["bound_ms"], case["bound_by"] = bound(*work)
         case["library_ms"] = cuda_ms(library) if library else None
+        if graph:
+            case["device_ms"] = graph_ms(lambda: kernel(*args))
+            if library:
+                case["library_device_ms"] = graph_ms(library)
     del out, ref, d
     entry["cases"].append(case)
     times = " ".join(f"{k}={case[k]:.4f}" for k in
-                     ("ms", "plain_ms", "bound_ms", "library_ms")
+                     ("ms", "device_ms", "plain_ms", "bound_ms", "library_ms",
+                      "library_device_ms")
                      if case.get(k) is not None)
     print(f"kernel {name}[{len(entry['cases']) - 1}] {tag} in={case['in']} "
           f"bit_exact={exact} max_abs_err={err} {times}")
@@ -622,7 +651,7 @@ def check_level(dev, cfg, report: dict) -> None:
                          method),
                         rule="close" if method == "nearest" else "allclose",
                         work=(12 * h * w * 4.0, mi * per_px * h * w),
-                        library=library, timed=timed)
+                        library=library, timed=timed, graph=False)
                 if timed:
                     count_barriers(report["level"]["cases"][-1], level,
                                    (left, right, state, thr, n, rep,
@@ -663,7 +692,7 @@ def check_fovea_kernels(dev, cfg, report: dict) -> None:
                     level.level_resident_match_plain, args,
                     rule="close" if method == "nearest" else "allclose",
                     work=(12 * fh * fw * 4.0, mi * per_px * fh * fw),
-                    library=library)
+                    library=library, graph=False)
             count_barriers(report["level_fovea"]["cases"][-1], level, args,
                            mi)
     del left, right, state
@@ -2167,14 +2196,152 @@ KERNELS = {
 }
 
 
-AB_TIMES = ("match_warm_median_s", "match_busy_share",
-            "bilinear_match_warm_median_s", "bilinear_match_busy_share",
-            "foveated_warm_median_s", "foveated_busy_share",
-            "blur_ms", "blur_zero6_ms", "warp_ms", "warp_bilinear_ms",
-            "warp_smooth_ms", "warp_bilinear_smooth_ms", "direction_ms",
-            "direction_row_halo_ms", "smooth0_ms", "smooth5_ms", "smooth_ms",
-            "smooth_row_halo_ms", "level8_ms", "level13_ms", "resample_ms",
-            "resample_bilinear_ms")
+# --ab's summary: every number a process reports (tree, name and round
+# are labels)
+AB_LABELS = ("tree", "name", "round")
+
+
+def resample_cases(cfg):
+    """The resample cases --ab times: (name, planes, source (h, w), output
+    (h, w), coordinate scale, value scale, row_off, col_off) for the three
+    16 MP resamples of a match (the sqrt(2) and x2 subsample of the
+    stacked 6-plane level, the value-scaled upsample of the 3-plane
+    state), the sqrt(2) subsample at level 8, the range map of a resized
+    cloud (x0.2) and the fovea window (407 x 615 of the 576 x 870 grid)."""
+    chain = cfg.dims_chain(H, W)
+    fh, fw = cfg.fovea_dims(H, W)
+    bh, bw = chain[cfg.fovea_level - 2]
+    inv = 1.0 / cfg.scale
+    return (("sqrt2", 6, chain[0], chain[1], cfg.scale, 1.0, 0, 0),
+            ("x2", 6, chain[0], chain[2], 2.0, 1.0, 0, 0),
+            ("up", 3, chain[1], chain[0], inv, cfg.scale, 0, 0),
+            ("l8_sqrt2", 6, chain[COARSE_LEVEL], chain[COARSE_LEVEL + 1],
+             cfg.scale, 1.0, 0, 0),
+            ("range_map", 1, chain[0], (int(H * 0.2), int(W * 0.2)), 5.0,
+             1.0, 0, 0),
+            ("fovea", 3, (fh, fw), (fh, fw), inv, cfg.scale,
+             bh // 2 - fh // 2, bw // 2 - fw // 2))
+
+
+def time_resample(dev, resample, case, rand) -> dict:
+    """One resample case in both methods: ``_ms`` the call on taps on the
+    card (resample_static), ``_device_ms`` the same from a CUDA graph (the
+    kernel alone), ``_tex_ms`` resample_tex (the host taps, their upload
+    and the call), ``_bound_ms``, and F.interpolate's call and device ms
+    where one call computes the same function."""
+    name, c, (sh, sw), (oh, ow), s, vs, r0, c0 = case
+    src = rand(c, sh, sw, hi=255.0)
+
+    def coord_of(t):
+        return t * s
+    times = {}
+    for method in ("nearest", "bilinear"):
+        bil = method == "bilinear"
+        if bil:
+            (iy, wy), (ix, wx) = (
+                resample.bilinear_taps(oh, sh, coord_of, r0),
+                resample.bilinear_taps(ow, sw, coord_of, c0))
+            taps = (iy, ix, wy, wx)
+        else:
+            taps = (resample.nearest_indices(oh, sh, coord_of, r0),
+                    resample.nearest_indices(ow, sw, coord_of, c0))
+        iy_k, ix_k, *weights = (torch.from_numpy(a).to(dev) for a in taps)
+
+        def call():
+            return resample.resample_static(src, iy_k, ix_k, vs, *weights)
+
+        def tex():
+            return resample.resample_tex(src, oh, ow, coord_of, vs, method,
+                                         r0, c0)
+        key = f"resample_{method}_{name}"
+        times[f"{key}_ms"] = cuda_ms(call)
+        times[f"{key}_device_ms"] = graph_ms(call)
+        times[f"{key}_tex_ms"] = cuda_ms(tex)
+        times[f"{key}_bound_ms"] = bound(
+            taps_bytes(src, oh, ow, taps[0], taps[1], bil),
+            c * oh * ow * ((12 if bil else 0) + (vs != 1.0)))[0]
+        library = (interpolate_resample(src, s, (oh, ow), method)
+                   if vs == 1.0 and not (r0 or c0) else None)
+        if library:
+            times[f"interpolate_{method}_{name}_ms"] = cuda_ms(library)
+            times[f"interpolate_{method}_{name}_device_ms"] = graph_ms(
+                library)
+    return times
+
+
+def host_costs(dev, resample) -> dict:
+    """Host µs a call (this machine's CPU; host clock, the median of 7
+    batches of 200 calls, the card not waited on: the kernel takes a few
+    µs) of the bilinear range-map resample, 1 x 16 MP -> 652 x 985, and of
+    the steps of its call: the numpy taps, their upload in four copies or
+    one packed copy, the checks of the image and of four tap tensors, the
+    output's allocation, the current device, the current stream as a
+    torch.cuda.Stream or as its raw handle, the C entry called through
+    ctypes (the launch included) and _build.launch around it;
+    resample_static (taps on the card), resample_tex (the whole call) and
+    F.interpolate beside them."""
+    from ug_stereomatcher_tpu_torch.ops.cuda import _build
+
+    oh, ow = int(H * 0.2), int(W * 0.2)
+    z = torch.rand(1, H, W, device=dev)
+
+    def coord_of(t):
+        return t * 5.0
+
+    def taps():
+        return (resample.bilinear_taps(oh, H, coord_of),
+                resample.bilinear_taps(ow, W, coord_of))
+    (iy, wy), (ix, wx) = taps()
+    host = (iy, ix, wy, wx)
+    packed = np.concatenate([a.view(np.int32) for a in host])
+    on_card = [torch.from_numpy(a).to(dev) for a in host]
+
+    def check_vectors():
+        for v, dt in zip(on_card, (torch.int32,) * 2 + (torch.float32,) * 2):
+            resample._check_vector("v", v, dt, z.device)
+    out_buf = torch.empty((1, oh, ow), device=dev)
+    c_name = "ugsm_resample_bilinear"
+    args = [t.data_ptr() for t in (z, out_buf, *on_card)]
+    args += [1, H, W, oh, ow, 1.0, 0]
+    if len(_build.SIGNATURES[c_name]) > len(args) + 1:   # the launch shape
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        args += resample.bilinear_launch(1, oh, ow, sms)
+    entry = getattr(_build.library(), c_name)
+    stream = torch.cuda.current_stream().cuda_stream
+    steps = {
+        "taps": taps,
+        "upload_four": lambda: [torch.from_numpy(a).to(dev, non_blocking=True)
+                                for a in host],
+        "upload_one": lambda: torch.from_numpy(packed).to(
+            dev, non_blocking=True),
+        "check_image": lambda: _build.check_planes("z", z),
+        "check_vectors": check_vectors,
+        "empty": lambda: torch.empty((1, oh, ow), device=dev),
+        "stream_object": lambda: torch.cuda.current_stream().cuda_stream,
+        "current_device": torch.cuda.current_device,
+        "stream_raw": lambda: torch._C._cuda_getCurrentRawStream(
+            torch.cuda.current_device()),
+        "ctypes_entry": lambda: entry(*args, stream),
+        "build_launch": lambda: _build.launch(c_name, "host_costs", *args),
+        "static": lambda: resample.resample_static(z, on_card[0], on_card[1],
+                                                   1.0, *on_card[2:]),
+        "tex": lambda: resample.resample_tex(z, oh, ow, coord_of, 1.0,
+                                             "bilinear"),
+        "interpolate": interpolate_resample(z, 5.0, (oh, ow), "bilinear"),
+    }
+    out = {}
+    for step, fn in steps.items():
+        fn()
+        torch.cuda.synchronize()
+        batches = []
+        for _ in range(7):
+            t0 = time.perf_counter()
+            for _ in range(200):
+                fn()
+            batches.append((time.perf_counter() - t0) / 200 * 1e6)
+            torch.cuda.synchronize()
+        out[f"host_{step}_us"] = statistics.median(batches)
+    return out
 
 
 def ab_child(tree: str, matches: int) -> dict:
@@ -2272,20 +2439,26 @@ def ab_child(tree: str, matches: int) -> dict:
     stacked = rand(6, H, W, hi=255.0)
     times["blur_zero6_ms"] = cuda_ms(
         lambda: blur.fused_blur_gaussian(stacked, "zero"))
-    (h1, w1) = chain[1]
-
-    def coord_of(t):
-        return t * cfg.scale
-    iy, ix = (torch.from_numpy(resample.nearest_indices(n, m, coord_of)).to(
-        dev) for n, m in ((h1, H), (w1, W)))
-    times["resample_ms"] = cuda_ms(
-        lambda: resample.resample_static(stacked, iy, ix))
-    (iy, wy), (ix, wx) = (
-        (torch.from_numpy(a).to(dev) for a in resample.bilinear_taps(
-            n, m, coord_of)) for n, m in ((h1, H), (w1, W)))
-    times["resample_bilinear_ms"] = cuda_ms(
-        lambda: resample.resample_static(stacked, iy, ix, 1.0, wy, wx))
     del stacked
+    # level 8: the call, and the kernel alone, of every per-iteration
+    # kernel (a small level's call is the host's work)
+    h8, w8 = chain[COARSE_LEVEL]
+    img8 = rand(3, h8, w8, hi=255.0)
+    state8 = torch.stack([rand(h8, w8, lo=-2.0, hi=5.0),
+                          rand(h8, w8, lo=-1.0, hi=1.0),
+                          rand(h8, w8, lo=0.05, hi=1.0)])
+    for key, call in (
+            ("blur_l8", lambda: blur.fused_blur_gaussian(img8, "clamp")),
+            ("warp_l8", lambda: warp.warp(img8, state8[0], state8[1])),
+            ("direction_l8", lambda: direction.fused_direction_update(
+                img8, img8, img8, state8, 1.0, False)),
+            ("smooth_l8", lambda: smooth.fused_smooth_average(state8, 5))):
+        times[f"{key}_ms"] = cuda_ms(call)
+        times[f"{key}_device_ms"] = graph_ms(call)
+    del img8, state8
+    for case in resample_cases(cfg):
+        times.update(time_resample(dev, resample, case, rand))
+    times.update(host_costs(dev, resample))
     # last, so that every tree's kernels are timed after the same work
     time_entry("foveated", "nearest", "match_foveated")
     return times
@@ -2307,19 +2480,23 @@ def ab(trees, rounds: int, matches: int, out) -> int:
             run = json.loads(proc.stdout.strip().splitlines()[-1])
             run.update(name=name, round=r)
             runs.append(run)
-            print(json.dumps(run))
+            print(f"ab round {r} {name} done")
     print(f"nvidia-smi {smi}")
     summary = {}
     for name, _ in trees:
         mine = [x for x in runs if x["name"] == name]
         # a tree from before mode 2 has no foveated times
+        keys = [k for k, v in mine[0].items() if k not in AB_LABELS
+                and isinstance(v, (int, float))
+                and all(k in x for x in mine)]
         summary[name] = {k: {"median": statistics.median(x[k] for x in mine),
                              "min": min(x[k] for x in mine),
                              "max": max(x[k] for x in mine)}
-                         for k in AB_TIMES if all(k in x for x in mine)}
-        print(f"{name}: " + " ".join(
-            f"{k}={v['median']:.4f} [{v['min']:.4f}, {v['max']:.4f}]"
-            for k, v in summary[name].items()))
+                         for k in keys}
+    for k in summary[trees[0][0]]:
+        print(f"ab {k}: " + "  ".join(
+            f"{name} {v[k]['median']:.6g} [{v[k]['min']:.6g}, "
+            f"{v[k]['max']:.6g}]" for name, v in summary.items() if k in v))
     if out:
         with open(out, "w") as fh:
             json.dump({"nvidia_smi": smi, "runs": runs, "summary": summary},
@@ -2498,7 +2675,8 @@ def main() -> int:
                      "replaces": f"ug_stereomatcher_tpu/{replaces}",
                      "launches": launches,
                      "max_abs_err": k["max_abs_err"],
-                     "ms": case["ms"], "plain_ms": case["plain_ms"],
+                     "ms": case["ms"], "device_ms": case.get("device_ms"),
+                     "plain_ms": case["plain_ms"],
                      "bound_ms": case["bound_ms"],
                      "bound_by": case["bound_by"],
                      "library_ms": case["library_ms"]})

@@ -39,6 +39,24 @@ def test_tap_tables_bitwise_equal():
     assert tcfg.REFERENCE_SCALE == jcfg.REFERENCE_SCALE
 
 
+@pytest.mark.parametrize("sigma,radius,precision", [
+    (1.1, 2, 5), (0.7, 1, 3), (2.5, 4, 9), (1.0, 3, 2)])
+def test_analytic_gaussian_kernel_bitwise_equal(sigma, radius, precision):
+    a = tcfg.analytic_gaussian_kernel(sigma, radius, precision)
+    b = jcfg.analytic_gaussian_kernel(sigma, radius, precision)
+    assert a.dtype == b.dtype == np.float32
+    assert a.shape == (2 * radius + 1,)
+    assert a.tobytes() == b.tobytes()
+
+
+@pytest.mark.parametrize("threshold", [1.0, 0.35, 2.0])
+def test_moves_equal_jax(threshold):
+    t = tcfg.MatcherConfig(threshold_init=threshold)
+    j = jcfg.MatcherConfig(threshold_init=threshold)
+    assert t.moves == j.moves
+    assert [m[0] / threshold for m in t.moves] == [m[0] for m in tcfg.MOVES]
+
+
 @pytest.mark.parametrize("h,w", SIZES)
 def test_dims_chain_and_num_levels(h, w):
     t, j = tcfg.MatcherConfig(), jcfg.MatcherConfig()

@@ -41,6 +41,16 @@ from ug_stereomatcher_tpu_torch.ops.cuda.warp import warp
 from ug_stereomatcher_tpu_torch.parallel import spatial
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread: the test workers share the machine's cores
+    (eight threads a worker oversubscribe them many times over)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def t(a):
     return torch.from_numpy(np.ascontiguousarray(a))
 

@@ -118,6 +118,9 @@ RESAMPLE_CASES = {
 RESAMPLE_CASES.update({
     f"row_w{w2}_c{c}": ((c, 3, 2 * w2 + 3), (1, w2), lambda v: v * 2.0, 0.5)
     for c in (1, 3, 6) for w2 in (128, 129, 130, 131, 261)})
+# The point cloud's range map: the x5 downsample of one plane.
+RESAMPLE_CASES["range_map_x5"] = ((1, 163, 247), (32, 49), lambda v: v * 5.0,
+                                  1.0)
 
 
 @pytest.mark.parametrize("case", sorted(RESAMPLE_CASES))
@@ -144,6 +147,89 @@ def test_resample_bilinear_bit_exact(cuda, case):
     out = resample.resample_tex(img, h2, w2, coord_of, vs, "bilinear")
     assert torch.equal(out, resample.resample_static_plain(img, iy, ix, vs,
                                                            wy, wx))
+
+
+# (rows, planes, warps) of the bilinear kernel, forced: each strip height
+# with all planes in a block and 8 warps, fewer planes a block, fewer
+# warps (resample.bilinear_launch picks one of these for each output).
+LAUNCH_SHAPES = [(4, 6, 8), (2, 6, 8), (2, 3, 8), (1, 2, 8), (1, 1, 4),
+                 (4, 2, 1), (1, 1, 1)]
+# (coordinate scale, value scale): the sqrt(2) and x2 subsamples of the
+# pyramid, the value-scaled sqrt(2) upsample of the state.
+BILINEAR_MAPS = [(SCALE, 1.0), (2.0, 0.5), (1.0 / SCALE, SCALE)]
+
+
+def bilinear_case(dev, c, h2, w2, s, seed=0):
+    """A source for an (h2, w2) output at coordinate scale ``s``, its
+    taps on the card."""
+    h, w = max(2, int(np.ceil(h2 * s)) + 2), max(2, int(np.ceil(w2 * s)) + 2)
+    img = rand(dev, c, h, w, hi=4.0, seed=seed)
+    (iy, wy), (ix, wx) = (
+        (torch.from_numpy(a).to(dev) for a in resample.bilinear_taps(
+            n, m, lambda v: v * s)) for n, m in ((h2, h), (w2, w)))
+    return img, iy, ix, wy, wx
+
+
+@pytest.mark.parametrize("shape", LAUNCH_SHAPES)
+@pytest.mark.parametrize("channels", [1, 3, 6])
+def test_resample_bilinear_every_launch_shape_bit_exact(cuda, monkeypatch,
+                                                        shape, channels):
+    """Outputs one row short of a strip, at one strip and one row past
+    it, and the same about a block's rows, at each forced launch shape."""
+    rows, planes, warps = shape
+    planes = min(planes, channels)
+    monkeypatch.setattr(resample, "bilinear_launch",
+                        lambda *a: (rows, planes, warps))
+    for h2 in sorted({rows - 1, rows, rows + 1, rows * warps - 1,
+                      rows * warps, rows * warps + 1} - {0}):
+        for s, vs in BILINEAR_MAPS:
+            img, iy, ix, wy, wx = bilinear_case(cuda, channels, h2, 131, s)
+            assert_same(resample.resample_static,
+                        resample.resample_static_plain, img, iy, ix, vs, wy,
+                        wx)
+
+
+def test_resample_bilinear_every_column_residue_bit_exact(cuda, monkeypatch):
+    """W2 at every residue modulo the 128 columns a warp covers."""
+    for shape in ((4, 3, 8), (1, 1, 1)):
+        monkeypatch.setattr(resample, "bilinear_launch", lambda *a: shape)
+        for w2 in range(128, 256):
+            img, iy, ix, wy, wx = bilinear_case(cuda, 3, 9, w2, 2.0)
+            assert_same(resample.resample_static,
+                        resample.resample_static_plain, img, iy, ix, 0.5, wy,
+                        wx)
+
+
+@pytest.mark.parametrize("forced", [False, True])
+def test_resample_bilinear_strip_loop_second_wave(cuda, monkeypatch, forced):
+    """More strips than the grid's 65535 rows of blocks: the strip loop
+    runs a second time (forced to one row and one warp a block, or the
+    launch bilinear_launch picks for a tall, narrow output)."""
+    if forced:
+        monkeypatch.setattr(resample, "bilinear_launch",
+                            lambda *a: (1, 1, 1))
+        h2 = resample.MAX_GRID_Y + 37
+    else:
+        rows, _, warps = resample.bilinear_launch(
+            1, 70 * resample.MAX_GRID_Y, 2, 132)
+        h2 = resample.MAX_GRID_Y * rows * warps + 37
+    img, iy, ix, wy, wx = bilinear_case(cuda, 2 if forced else 1, h2, 3,
+                                        0.001)
+    assert_same(resample.resample_static, resample.resample_static_plain,
+                img, iy, ix, 1.0, wy, wx)
+
+
+def test_packed_tap_upload_equals_separate_uploads(cuda):
+    """One copy of the packed taps gives the tensors four copies give."""
+    (iy, wy), (ix, wx) = (resample.bilinear_taps(97, 68, lambda v: v / SCALE),
+                          resample.bilinear_taps(211, 149,
+                                                 lambda v: v / SCALE))
+    packed = resample.upload_taps(cuda, (iy, ix, wy, wx))
+    for a, host in zip(packed, (iy, ix, wy, wx)):
+        b = torch.from_numpy(host).to(cuda)
+        assert a.device == b.device and a.dtype == b.dtype
+        assert a.shape == b.shape and a.is_contiguous()
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
 
 
 def smooth_field(dev, h, w, row0=0, seed=0):
@@ -500,7 +586,8 @@ def test_match_batch_on_card_mesh_equals_match(cuda):
 # takes it, and at the far corner.
 WINDOWED_CASES = {"fovea16mp": ((3, 407, 615), (576, 870), (407, 615)),
                   "odd": ((3, 37, 53), (52, 75), (37, 53)),
-                  "odd1": ((1, 23, 131), (33, 185), (17, 129))}
+                  "odd1": ((1, 23, 131), (33, 185), (17, 129)),
+                  "wide6": ((6, 70, 300), (99, 424), (70, 300))}
 
 
 @pytest.mark.parametrize("where", ["centre", "far_corner"])

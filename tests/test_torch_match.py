@@ -26,6 +26,16 @@ from ug_stereomatcher_tpu_torch import pyramid as tpyr
 from ug_stereomatcher_tpu_torch.config import MatcherConfig
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread: the test workers share the machine's cores
+    (eight threads a worker oversubscribe them many times over)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def configs(**kw):
     """The same algorithm configuration in both packages."""
     jcfg = JaxConfig(**kw)

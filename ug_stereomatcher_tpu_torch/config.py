@@ -10,6 +10,7 @@ port never loads the JAX package.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Mapping, Optional, Tuple
 
 import numpy as np
@@ -79,6 +80,25 @@ def gaussian_kernel() -> np.ndarray:
 def average_kernel() -> np.ndarray:
     """The 5-tap 'average' kernel of the per-iteration smoothing."""
     return _AVERAGE.astype(np.float32)
+
+
+def analytic_gaussian_kernel(sigma: float = 1.1, radius: int = 2,
+                             precision: int = 5) -> np.ndarray:
+    """The 5-sample-averaged discrete Gaussian the reference computes
+    (MatchGPULib.cpp:735-760) before overwriting it with the hard-coded
+    taps; normalised to sum 1, float32.  Not used on the default path."""
+    length = 2 * radius + 1
+    mid = length // 2 + 1
+    k = np.zeros(length, dtype=np.float64)
+    for i in range(length):
+        acc = 0.0
+        for n in range(precision):
+            t = i + 0.5 - mid + (n / (precision - 1.0))
+            acc += math.exp(-(t * t) / (2 * sigma * sigma)) / (
+                math.sqrt(2 * math.pi) * sigma)
+        k[i] = acc / precision
+    k /= k.sum()
+    return k.astype(np.float32)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -221,6 +241,13 @@ class MatcherConfig:
                 else:
                     th = self.threshold_init
         return tuple(sched)
+
+    @property
+    def moves(self) -> Tuple[Tuple[float, float], ...]:
+        """The five correlation search moves (dx, dy) at the initial
+        threshold: left, right, up, down, centre (MatchGPULib.cpp:1677)."""
+        t = self.threshold_init
+        return ((-t, 0.0), (t, 0.0), (0.0, -t), (0.0, t), (0.0, 0.0))
 
     @property
     def conf_consts(self) -> Tuple[float, float, float, float, float]:

@@ -29,7 +29,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, List, Optional
+from typing import Callable, Dict, List, Optional
 
 import torch
 
@@ -53,7 +53,7 @@ SIGNATURES = {
     "ugsm_resample_nearest": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I,
                               _P],
     "ugsm_resample_bilinear": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                               _F, _I, _P],
+                               _F, _I, _I, _I, _I, _P],
     "ugsm_warp": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "ugsm_direction_update": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
                               _I, _F, _F, _F, _F, _F, _F, _F, _F, _P],
@@ -73,6 +73,7 @@ QUERIES = {
 
 LAUNCHES: Dict[str, int] = collections.Counter()
 _LIB: Optional[ctypes.CDLL] = None
+_ENTRIES: Dict[str, Callable[..., int]] = {}
 
 
 def sources() -> List[Path]:
@@ -174,10 +175,15 @@ def check(name: str, err: int) -> None:
 
 def launch(name: str, counter: str, *args) -> None:
     """Call C entry ``name`` on PyTorch's current stream, raise on a CUDA
-    error, and count one launch under ``counter``."""
-    lib = library()
-    stream = torch.cuda.current_stream().cuda_stream
-    check(name, getattr(lib, name)(*args, stream))
+    error, and count one launch under ``counter``.  The stream's handle is
+    read without building a ``torch.cuda.Stream`` (the raw query that
+    ``torch.cuda.current_stream`` itself wraps; device -1 is the current
+    one), and each entry is looked up once."""
+    fn = _ENTRIES.get(name)
+    if fn is None:
+        fn = _ENTRIES[name] = getattr(library(), name)
+    stream = torch._C._cuda_getCurrentRawStream(-1)
+    check(name, fn(*args, stream))
     LAUNCHES[counter] += 1
 
 
@@ -209,5 +215,6 @@ def check_planes(name: str, *tensors: torch.Tensor) -> torch.device:
     return dev
 
 
-def ptr(t: torch.Tensor) -> ctypes.c_void_p:
-    return ctypes.c_void_p(t.data_ptr())
+def ptr(t: torch.Tensor) -> int:
+    """The device address of ``t`` (a c_void_p argument takes the int)."""
+    return t.data_ptr()

@@ -7,28 +7,31 @@ Replaces ``resample_static`` (ug_stereomatcher_tpu/ops/pallas/resample.py,
 ``_bilinear_taps`` :261).  Bound on the card by device memory: a gather.
 The TPU kernel selects rows and columns with one-hot (two-hot for
 bilinear) matmuls because its vector unit cannot gather; the kernels here
-read their source floats directly with coalesced writes: the nearest
-kernel gives each thread 4 columns (32 apart) of a 4-row strip across
-every plane, its indices held in registers; the bilinear kernel one
-output per thread, a block per run of 256 columns of a row.  Bit-exact
-against the plain version.
+read their source floats directly with coalesced writes.  Both give each
+thread 4 columns (32 apart) of a strip of rows across the planes, the
+taps held in registers; the bilinear kernel also keeps the source rows a
+strip reuses in registers, and its grid is sized to the output
+(``bilinear_launch``).  Bit-exact against the plain version.
 
 The taps are computed on the host in float64 with numpy, as the JAX
 package's ``resample_tex`` computes them: nearest indices, or bilinear
-floor taps with float32 weights (``ops.resample.bilinear_taps``).  The
-bilinear form uses these host taps on every level.  The JAX package sends
-small levels to its float32 ``tex_gather`` instead (pyramid.py:39-54), a
-size gate that exists only to skip the TPU kernel's tiling on small
-images; the port has no such gate, so its bilinear pyramid differs from
-the JAX package's on those levels by the float32 rounding of the
-coordinates (about 1e-5 relative; tests/test_torch_kernels.py).
+floor taps with float32 weights (``ops.resample.bilinear_taps``), and go
+to the card in one copy (``upload_taps``).  The bilinear form uses these
+host taps on every level.  The JAX package sends small levels to its
+float32 ``tex_gather`` instead (pyramid.py:39-54), a size gate that exists
+only to skip the TPU kernel's tiling on small images; the port has no
+such gate, so its bilinear pyramid differs from the JAX package's on
+those levels by the float32 rounding of the coordinates (about 1e-5
+relative; tests/test_torch_kernels.py).
 """
 
 from __future__ import annotations
 
-import torch
+import functools
+from typing import List, Optional, Sequence, Tuple
 
-from typing import Optional
+import numpy as np
+import torch
 
 from ug_stereomatcher_tpu_torch.config import INTERP_METHODS, unsupported_interp
 from ug_stereomatcher_tpu_torch.ops.cuda._build import check_planes, launch, ptr
@@ -39,6 +42,68 @@ from ug_stereomatcher_tpu_torch.ops.resample import (
     resample_static_plain,
 )
 
+MAX_KERNEL_ELEMENTS = 2 ** 31  # the bilinear kernel's offsets are 32-bit
+COLUMN_SPAN = 128              # columns a warp covers: 4 a thread, 32 apart
+STRIP_ROWS = (4, 2, 1)         # the bilinear kernel's strip heights
+BLOCK_WARPS = (8, 4, 2, 1)
+MIN_BLOCKS_PER_SM = 2          # the grid the launch shape aims for
+MAX_GRID_Y = 65535
+
+
+@functools.lru_cache(maxsize=4096)
+def bilinear_launch(c: int, h2: int, w2: int,
+                    sms: int) -> Tuple[int, int, int]:
+    """(rows, planes, warps) of the bilinear kernel for a (c, h2, w2)
+    output on a card of ``sms`` SMs: the strip height, the planes a block
+    takes and the warps a block has.  The first of: the tallest strip with
+    every plane in the block and 8 warps, then fewer planes a block, then
+    fewer warps, whose grid has MIN_BLOCKS_PER_SM blocks an SM; the last
+    where none has."""
+    col_blocks = -(-w2 // COLUMN_SPAN)
+
+    def blocks(rows, planes, warps):
+        return (col_blocks * min(-(-h2 // (rows * warps)), MAX_GRID_Y)
+                * -(-c // planes))
+    splits = sorted({-(-c // g) for g in range(1, c + 1)}, reverse=True)
+    shapes = ([(r, c, BLOCK_WARPS[0]) for r in STRIP_ROWS]
+              + [(1, p, BLOCK_WARPS[0]) for p in splits[1:]]
+              + [(1, 1, w) for w in BLOCK_WARPS[1:]])
+    for shape in shapes:
+        if blocks(*shape) >= MIN_BLOCKS_PER_SM * sms:
+            return shape
+    return shapes[-1]
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def upload_taps(dev: torch.device,
+                taps: Sequence[np.ndarray]) -> List[torch.Tensor]:
+    """1-D int32 and float32 host arrays on ``dev`` in one copy: packed
+    into one int32 buffer (the float32 ones bit-cast), then split into
+    views on the device that keep each array's dtype and bits."""
+    for a in taps:
+        if a.ndim != 1 or a.dtype not in (np.int32, np.float32):
+            raise ValueError(f"upload_taps: expected 1-D int32 or float32 "
+                             f"arrays, got {a.dtype} of shape {a.shape}")
+    buf = torch.from_numpy(np.concatenate([a.view(np.int32) for a in taps]))
+    buf = buf.to(dev, non_blocking=True)
+    views, start = [], 0
+    for a in taps:
+        v = buf[start:start + a.size]
+        views.append(v.view(torch.float32) if a.dtype == np.float32 else v)
+        start += a.size
+    return views
+
+
+def _check_image(name: str, img: torch.Tensor) -> torch.device:
+    if img.ndim != 3:
+        raise ValueError(f"{name}: expected (C, H, W), got "
+                         f"{tuple(img.shape)}")
+    return check_planes(name, img)
+
 
 def _check_vector(name: str, v: torch.Tensor, dtype: torch.dtype,
                   dev: torch.device) -> None:
@@ -46,6 +111,29 @@ def _check_vector(name: str, v: torch.Tensor, dtype: torch.dtype,
             or not v.is_contiguous()):
         raise ValueError(f"resample_static: {name} must be a contiguous "
                          f"1-D {dtype} tensor on {dev}")
+
+
+def _launch(img: torch.Tensor, iy: torch.Tensor, ix: torch.Tensor,
+            value_scale: float, wy: Optional[torch.Tensor] = None,
+            wx: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The kernel on checked CUDA tensors."""
+    C, H, W = img.shape
+    H2, W2 = iy.numel(), ix.numel()
+    scale = (float(value_scale), int(value_scale != 1.0))
+    if wy is None:
+        out = torch.empty((C, H2, W2), dtype=img.dtype, device=img.device)
+        launch("ugsm_resample_nearest", "resample", ptr(img), ptr(out),
+               ptr(iy), ptr(ix), C, H, W, H2, W2, *scale)
+        return out
+    if max(C * H * W, C * H2 * W2) >= MAX_KERNEL_ELEMENTS:
+        raise ValueError(f"resample_static: {C} x {H} x {W} -> {H2} x {W2}: "
+                         f"the bilinear kernel takes planes of fewer than "
+                         f"2^31 floats")
+    out = torch.empty((C, H2, W2), dtype=img.dtype, device=img.device)
+    launch("ugsm_resample_bilinear", "resample_bilinear", ptr(img), ptr(out),
+           ptr(iy), ptr(ix), ptr(wy), ptr(wx), C, H, W, H2, W2, *scale,
+           *bilinear_launch(C, H2, W2, _sms(img.device.index)))
+    return out
 
 
 def resample_static(img: torch.Tensor, iy: torch.Tensor, ix: torch.Tensor,
@@ -58,29 +146,20 @@ def resample_static(img: torch.Tensor, iy: torch.Tensor, ix: torch.Tensor,
     ops.resample.resample_static_plain).  Nearest: out[c, r, x] =
     value_scale * img[c, iy[r], ix[x]].  A CUDA tensor runs the kernel; a
     CPU tensor runs the plain version."""
-    if img.ndim != 3:
-        raise ValueError(f"expected (C, H, W), got {tuple(img.shape)}")
     if (wy is None) != (wx is None):
         raise ValueError("resample_static: pass both wy and wx, or neither")
-    if check_planes("resample_static", img).type == "cpu":
+    dev = _check_image("resample_static", img)
+    if dev.type == "cpu":
         return resample_static_plain(img, iy, ix, value_scale, wy, wx)
-    _check_vector("iy", iy, torch.int32, img.device)
-    _check_vector("ix", ix, torch.int32, img.device)
-    C, H, W = img.shape
-    H2, W2 = iy.numel(), ix.numel()
-    out = torch.empty((C, H2, W2), dtype=img.dtype, device=img.device)
-    scale = (float(value_scale), int(value_scale != 1.0))
-    if wy is None:
-        launch("ugsm_resample_nearest", "resample", ptr(img), ptr(out),
-               ptr(iy), ptr(ix), C, H, W, H2, W2, *scale)
-        return out
-    _check_vector("wy", wy, torch.float32, img.device)
-    _check_vector("wx", wx, torch.float32, img.device)
-    if wy.numel() != H2 or wx.numel() != W2:
-        raise ValueError("resample_static: weights and taps differ in length")
-    launch("ugsm_resample_bilinear", "resample_bilinear", ptr(img), ptr(out),
-           ptr(iy), ptr(ix), ptr(wy), ptr(wx), C, H, W, H2, W2, *scale)
-    return out
+    _check_vector("iy", iy, torch.int32, dev)
+    _check_vector("ix", ix, torch.int32, dev)
+    if wy is not None:
+        _check_vector("wy", wy, torch.float32, dev)
+        _check_vector("wx", wx, torch.float32, dev)
+        if wy.numel() != iy.numel() or wx.numel() != ix.numel():
+            raise ValueError("resample_static: weights and taps differ in "
+                             "length")
+    return _launch(img, iy, ix, value_scale, wy, wx)
 
 
 def resample_tex(img: torch.Tensor, out_h: int, out_w: int, coord_of: CoordFn,
@@ -93,19 +172,20 @@ def resample_tex(img: torch.Tensor, out_h: int, out_w: int, coord_of: CoordFn,
     only the window of rows [row_off, row_off + out_h) and columns
     [col_off, col_off + out_w) of the full destination grid (JAX
     ops/pallas/resample.py:286-297): the window lives in the host taps,
-    so the kernel is the same."""
+    so the kernel is the same.  The taps go to the card in one copy."""
     if method not in INTERP_METHODS:
         raise unsupported_interp(method)
+    dev = _check_image("resample_tex", img)
     h, w = img.shape[-2], img.shape[-1]
-
-    def upload(a):
-        return torch.from_numpy(a).to(img.device, non_blocking=True)
-
     if method == "nearest":
-        iy = upload(nearest_indices(out_h, h, coord_of, row_off))
-        ix = upload(nearest_indices(out_w, w, coord_of, col_off))
-        return resample_static(img, iy, ix, value_scale)
-    (iy, wy), (ix, wx) = (bilinear_taps(out_h, h, coord_of, row_off),
-                          bilinear_taps(out_w, w, coord_of, col_off))
-    return resample_static(img, upload(iy), upload(ix), value_scale,
-                           upload(wy), upload(wx))
+        taps = (nearest_indices(out_h, h, coord_of, row_off),
+                nearest_indices(out_w, w, coord_of, col_off))
+    else:
+        (iy, wy), (ix, wx) = (bilinear_taps(out_h, h, coord_of, row_off),
+                              bilinear_taps(out_w, w, coord_of, col_off))
+        taps = (iy, ix, wy, wx)
+    if dev.type == "cpu":
+        iy, ix, *weights = (torch.from_numpy(a) for a in taps)
+        return resample_static_plain(img, iy, ix, value_scale, *weights)
+    iy, ix, *weights = upload_taps(dev, taps)
+    return _launch(img, iy, ix, value_scale, *weights)

@@ -50,6 +50,7 @@ from ug_stereomatcher_tpu_torch.ops.cuda.direction import (
 from ug_stereomatcher_tpu_torch.ops.cuda.resample import (
     resample_static,
     resample_tex,
+    upload_taps,
 )
 from ug_stereomatcher_tpu_torch.ops.cuda.smooth import (
     fused_smooth_average,
@@ -272,18 +273,13 @@ def sharded_resample(x, out_h: int, out_w: int, coord_of: CoordFn,
     out = []
     for (a, b), dev in zip(row_splits(out_h, len(devices)), devices):
         lo, hi = int(iy[a:b].min()), int(last[a:b].max()) + 1
-
-        def upload(v):
-            if v is None:
-                return None
-            return torch.from_numpy(np.ascontiguousarray(v)).to(
-                dev, non_blocking=True)
-
+        taps = [(iy[a:b] - lo).astype(np.int32), ix]
+        if wy is not None:
+            taps += [wy[a:b], wx]
         with on_device(dev):
-            out.append(resample_static(
-                x.rows(lo, hi, dev), upload((iy[a:b] - lo).astype(np.int32)),
-                upload(ix), value_scale,
-                upload(None if wy is None else wy[a:b]), upload(wx)))
+            iy_k, ix_k, *weights = upload_taps(dev, taps)
+            out.append(resample_static(x.rows(lo, hi, dev), iy_k, ix_k,
+                                       value_scale, *weights))
     return RowBlocks(out_h, shards=out)
 
 
