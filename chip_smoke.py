@@ -81,6 +81,11 @@ Phases (any failure exits non-zero before the last line is printed):
    (rc 0, outputs checked, wall time); and accuracy_table(192, 256) on
    the card against the per-scene gates of tests/test_eval_cli.py and
    the same table on the CPU, with evaluate_occlusion in both modes;
+   phase 3f, batches, scaling and processes (see scaling_phase); phase
+   3g, ``python -m ug_stereomatcher_tpu_torch bench`` with BENCH_MODE=all
+   at 16 MP in a subprocess: rc 0, the JAX bench's metric order, every
+   line's values within the gates and naming this card, and the mode-1
+   value within 0.5-1.5x of (a)'s warm median;
 4. lockstep: pyramid level 4 (815 x 1231) refined from one input state
    by the kernels and by the plain versions on the card, held to the
    repo's quantile rule (q99 <= 2e-3, max <= 0.05);
@@ -2157,6 +2162,66 @@ def scaling_phase(dev, cfg, left, right, report: dict) -> None:
     print(f"scaling phase {out['wall_s']:.1f} s")
 
 
+# Phase 3g: the lines of ``python -m ug_stereomatcher_tpu_torch bench``
+# with BENCH_MODE=all at 16 MP, in the JAX bench's order (bench.py:579-614)
+BENCH_ORDER = ("16mp_foveated_disparity_latency",
+               "batched_throughput_815x1231", "foveated_throughput_815x1231",
+               "16mp_mode1_bilinear_disparity_latency",
+               "16mp_foveated_bilinear_disparity_latency",
+               "16mp_mode1_ee_disparity_latency",
+               "16mp_mode1_bilinear_ee_disparity_latency",
+               "16mp_mode1_disparity_latency")
+
+
+def bench_phase(kind: str, warm_median_s: float, report: dict) -> None:
+    """Phase 3g: the port's bench in a subprocess (BENCH_MODE=all, 16 MP,
+    BENCH_REPEATS=3), every line printed; it fails unless the bench exits
+    0, its metrics come in the JAX bench's order, each line's
+    extra.values pass the value gates (nearest 0.5, bilinear 0.1, frac >
+    0.9) and name this card, and the mode-1 value lies within 0.5-1.5x of
+    slice (a)'s warm median (a bench that timed the uploads or missed a
+    synchronise would not)."""
+    import os
+
+    env = {k: v for k, v in os.environ.items() if not k.startswith("BENCH_")}
+    env.update(BENCH_MODE="all", BENCH_REPEATS="3")
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "ug_stereomatcher_tpu_torch",
+                           "bench"], cwd=Path(__file__).resolve().parent,
+                          env=env, capture_output=True, text=True,
+                          timeout=600)
+    wall = time.perf_counter() - t0
+    lines = [json.loads(x) for x in proc.stdout.splitlines()
+             if x.startswith("{")]
+    for line in lines:
+        print(f"bench {json.dumps(line)}")
+    if proc.returncode != 0:
+        fail(f"bench: rc {proc.returncode}: {proc.stderr[-2000:]}")
+    names = tuple(line["metric"] for line in lines)
+    if names != BENCH_ORDER:
+        fail(f"bench: metrics {names}, expected {BENCH_ORDER}")
+    for line in lines:
+        extra, gate = line["extra"], (0.1 if "bilinear" in line["metric"]
+                                      else 0.5)
+        v = extra["values"]
+        if not (v["med_abs_dh_err"] < gate and v["mean_abs_dv"] < gate
+                and v["frac_dh_err_lt_1"] > 0.9):
+            fail(f"bench {line['metric']}: values {v} outside the gates "
+                 f"({gate}, frac > 0.9)")
+        if extra["device"] != kind:
+            fail(f"bench {line['metric']}: device {extra['device']!r}, "
+                 f"not {kind!r}")
+    ratio = lines[-1]["value"] / warm_median_s
+    print(f"bench: rc 0, {len(lines)} lines in {wall:.1f} s wall; mode1 "
+          f"value {lines[-1]['value']:.5f} s = {ratio:.3f} x slice (a)'s "
+          f"warm median {warm_median_s:.5f} s")
+    if not 0.5 <= ratio <= 1.5:
+        fail(f"bench: mode1 value {ratio:.3f} x slice (a)'s warm median, "
+             f"outside 0.5-1.5")
+    report["bench"] = {"wall_s": wall, "lines": lines,
+                       "mode1_over_slice_a": ratio}
+
+
 # name -> (source in csrc/, the TPU kernel's pallas_call it replaces,
 #          which slice's launch count it reports[, the launch counter's
 #          name where it is not the kernel's])
@@ -2647,6 +2712,8 @@ def main() -> int:
     pipeline_phase(dev, cfg, left, right, left_np, right_np, near_ref, report)
     torch.cuda.empty_cache()
     scaling_phase(dev, cfg, left, right, report)
+    torch.cuda.empty_cache()
+    bench_phase(kind, slices["nearest"]["warm_median_s"], report)
     del near_ref
     level_table(dev, cfg, left, right, report)
     lockstep_level(dev, cfg, left, right, report)

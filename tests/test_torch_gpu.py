@@ -24,7 +24,8 @@ under a relative-quantile rule and the range-map resizes against the CPU.
 Host layers: dumps, the service, epe_metrics and the colour panel on
 results that lie on the card, BatchRunner's dumps equal to match, and
 ``python -m ug_stereomatcher_tpu_torch match --device cuda``.  The
-scaling harness: measure_throughput dp on the card repeated.
+scaling harness: measure_throughput dp on the card repeated.  The bench:
+BENCH_MODE=mode1 at 816 x 1232 through bench.main(), its gates passed.
 """
 
 import numpy as np
@@ -874,3 +875,27 @@ def test_measure_throughput_dp_on_one_card_repeated(cuda):
     assert [p.mesh_shape for p in pts] == [(1, 1), (2, 1)]
     assert all(p.pairs_per_second > 0 for p in pts)
     assert [p.oversubscribed for p in pts] == [False, True]
+
+
+# ------------------------------------------------------------- the bench
+def test_bench_mode1_on_card(cuda, monkeypatch, capsys):
+    """bench.main() with BENCH_MODE=mode1 at 816 x 1232 on the card: rc
+    0, the value gates passed, and the line names the card."""
+    import json
+
+    from ug_stereomatcher_tpu_torch import bench
+    monkeypatch.delenv("BENCH_PLATFORM", raising=False)
+    for k, v in {"BENCH_MODE": "mode1", "BENCH_H": "816", "BENCH_W": "1232",
+                 "BENCH_REPEATS": "3"}.items():
+        monkeypatch.setenv(k, v)
+    assert bench.main() == 0
+    (out,) = capsys.readouterr().out.strip().splitlines()
+    line = json.loads(out)
+    assert line["metric"] == "mode1_disparity_latency_816x1232"
+    extra = line["extra"]
+    assert extra["device"] == torch.cuda.get_device_name()
+    assert extra["power_limit_w"] > 0
+    v = extra["values"]
+    assert v["med_abs_dh_err"] < 0.5 and v["mean_abs_dv"] < 0.5
+    assert v["frac_dh_err_lt_1"] > 0.9
+    assert line["value"] == min(extra["all_runs_s"]) > 0

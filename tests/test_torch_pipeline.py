@@ -595,9 +595,11 @@ def test_cli_config_with_override(tmp_path, pair_files):
 def test_cli_bad_args(tmp_path, pair_files, capsys):
     with pytest.raises(SystemExit):
         main(["match"])  # missing positional args
-    for gone in (["bench"], ["match", *pair_files, "--warp-backend", "xla"]):
+    # bench --mode takes the JAX parser's choices only (mode1, foveated)
+    for bad in (["bench", "--mode", "all"],
+                ["match", *pair_files, "--warp-backend", "xla"]):
         with pytest.raises(SystemExit):
-            main(gone)
+            main(bad)
     rc, _ = run_cli("match", *pair_files, "--foveated", "--panel")
     assert rc == 2
     assert "cannot be combined" in capsys.readouterr().err

@@ -11,6 +11,8 @@ of ``python -m ug_stereomatcher_tpu``:
     python -m ug_stereomatcher_tpu_torch cloud LEFT RIGHT --cal-left X
         --cal-right Y [-o cloud.pcd]
     python -m ug_stereomatcher_tpu_torch eval [--markdown]
+    python -m ug_stereomatcher_tpu_torch bench [--mode mode1|foveated]
+        [--height H --width W]
 
 Every command runs on ``--device`` (default ``cuda``; ``cpu`` runs the
 kernels' plain versions).  ``.npy`` images, dumps and ``.json`` configs
@@ -169,6 +171,27 @@ def cmd_eval(args) -> int:
     return 0
 
 
+def cmd_bench(args) -> int:
+    """The bench (bench.py): ``--mode``, ``--height``, ``--width`` and
+    ``--device cpu`` set BENCH_MODE, BENCH_H, BENCH_W and
+    BENCH_PLATFORM=cpu; what is not given keeps the environment's value
+    (BENCH_MODE=all by default)."""
+    import os
+
+    from ug_stereomatcher_tpu_torch import bench
+    if args.mode:
+        os.environ["BENCH_MODE"] = args.mode
+    if args.height:
+        os.environ["BENCH_H"] = str(args.height)
+    if args.width:
+        os.environ["BENCH_W"] = str(args.width)
+    if args.device == "cpu":
+        os.environ["BENCH_PLATFORM"] = "cpu"
+    elif args.device:
+        os.environ.pop("BENCH_PLATFORM", None)
+    return bench.main() or 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(
         prog="ug_stereomatcher_tpu_torch",
@@ -227,6 +250,17 @@ def main(argv=None) -> int:
                    help="emit the ACCURACY.md tables instead of JSON lines")
     _add_device_arg(p)
     p.set_defaults(fn=cmd_eval)
+
+    p = sub.add_parser("bench", help="run the standard benchmark "
+                                     "(bench.py; value gates on every line)")
+    p.add_argument("--mode", choices=["mode1", "foveated"], default=None,
+                   help="one latency line (default: BENCH_MODE, else all)")
+    p.add_argument("--height", type=int, default=None)
+    p.add_argument("--width", type=int, default=None)
+    p.add_argument("--device", default=None,
+                   help="cuda or cpu (default: BENCH_PLATFORM=cpu where "
+                        "set, else cuda)")
+    p.set_defaults(fn=cmd_bench)
 
     args = ap.parse_args(argv)
     return args.fn(args)
