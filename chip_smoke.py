@@ -24,6 +24,11 @@ Phases (any failure exits non-zero before the last line is printed):
    (407 x 615) with the schedules of levels 0 and 1 (10 passes, 2 and 4
    iterations) in both methods, and the windowed resample of a fovea
    transition (onto the centred window of the 576 x 870 grid) in both;
+   early exit's: warp, direction and smooth guarded by a set flag (the
+   output untouched) and a clear one (bit-equal to the unguarded launch)
+   at 16 MP and level 8, and the convergence kernel at levels 0 and 5
+   (3264 x 4928, 576 x 870) against its plain version (1e-5 relative)
+   and a float64 sum (2e-6), with its flag;
    each kernel's least possible time on the card (bound) and, where one
    PyTorch call computes the same function, that call's time; every
    case but the level kernel's also prints its device time alone
@@ -53,11 +58,13 @@ Phases (any failure exits non-zero before the last line is printed):
    map's centred fovea window equal to (f) bit for bit; and levels 4-13
    of the nearest mode-1 match timed level-resident against per
    iteration; the extras and the geometry on the same pair: early exit,
-   (k) nearest at 0.1 px and (l) bilinear at 0.02 px (the iterations of
-   each per-iteration level from its warp launches, the host reads, the
-   launch counts against those iterations with the level kernel at 8,
-   the value gates, latency and busy share beside (a) and (c)), the
-   convergence trace at level 4, match_with_consistency (the consistent
+   decided on the card, (k) nearest at 0.1 px and (l) bilinear at 0.02
+   px (no host read, the fixed schedule's launches and 42 convergence
+   tests, the iterations that did work by iterations_run(), each
+   per-iteration level alone equal to the host-read loop on the card in
+   iterations and bits, the value gates, latency, spread, busy share
+   and the host's enqueue time beside (a) and (c)), the convergence
+   trace at level 4, match_with_consistency (the consistent
    share on [64:-64, 64:-64] > 0.9, one warp launch beyond the two
    matches), profile_match equal to (a) with its per-level breakdown,
    warmup and get_disparities equal to match and match_foveated, and on
@@ -105,13 +112,15 @@ unpacked by ``git archive`` against this checkout): each round runs
 every tree once, in its own process that imports the port from that
 tree and builds its kernels there, in an order reversed every other
 round (parent, change, change, parent, ...).  A process times
-StereoEngine.match nearest and bilinear and match_foveated nearest
-(where the tree has it) on the bench scene, warm (host clock around a
+StereoEngine.match nearest and bilinear, match_foveated nearest (where
+the tree has it) and, last, early exit (nearest at 0.1 px, bilinear at
+0.02) on the bench scene, warm (host clock around a
 synchronised call, median of ``--matches`` after one warm-up), each with
 the device's busy share of one profiled match; the
 whole-image blur, warp (nearest and bilinear, on the random and the
 smooth field), direction and smooth (n = 0, 5 and 10) kernels at 16
-MP, the 6-plane zero-boundary blur of the stacked pyramid level, and
+MP (warp, direction and smooth n = 10 also alone, from a CUDA graph),
+the 6-plane zero-boundary blur of the stacked pyramid level, and
 the row-sharded direction and smooth (n = 10) on the middle shard of
 four; the level-resident kernel at levels 8 and 13 (nearest,
 replace_first off), blur, warp, direction and smooth at level 8 (call
@@ -174,6 +183,11 @@ DIRECTION_OPS = 3 * (1 + 2 * PASS5_OPS + 5 * (1 + 2 * PASS5_OPS + 4)) + 34
 SMOOTH_PASS_OPS = 4 + 3 * 10
 AVERAGE_OPS = 3 * 2 * 5
 WARP_OPS = {"nearest": 6, "bilinear": 10 + 3 * 12}
+# the convergence test: two differences, two absolute values, two
+# products and three sums a pixel; it reads five planes
+CONVERGENCE_OPS = 9
+CONVERGENCE_BYTES = 5 * 4
+CONVERGENCE_LEVELS = (0, 5)   # 3264 x 4928 and 576 x 870
 
 
 def fail(msg: str) -> None:
@@ -544,7 +558,122 @@ def check_kernels(dev, cfg, report: dict) -> None:
                     timed=False)
         check_row_halo(report, tag, left, warped, bl2, state, dh, dv,
                        smooth_n, cfg.conf_consts)
+        check_guards(dev, report, tag, [
+            (f"warp {m}", warp.warp, (left, sh, sv, m))
+            for m in ("nearest", "bilinear")] + [
+            ("direction", direction.fused_direction_update,
+             (left, warped, bl2, state, 1.0, False, cfg.conf_consts)),
+            ("smooth", smooth.fused_smooth_average, (state, smooth_n))])
         del left, warped, bl2, state, stacked, up_src, dh, dv, sq, sh, sv
+        torch.cuda.empty_cache()
+    check_convergence(dev, cfg, report)
+
+
+def check_guards(dev, report: dict, tag: str, cases) -> None:
+    """Phase 2a, early exit's guarded forms: with the level's flag set,
+    each of warp, direction and smooth leaves its output as it was (filled
+    with a NaN sentinel first); with the flag clear it is bit-equal to
+    the unguarded launch."""
+    flag = torch.ones(1, dtype=torch.int32, device=dev)
+    for name, fn, args in cases:
+        ref = fn(*args)
+        out = torch.full_like(ref, float("nan"))
+        flag.fill_(1)
+        fn(*args, stop=flag, out=out)
+        torch.cuda.synchronize()
+        untouched = bool(torch.isnan(out).all().item())
+        flag.zero_()
+        fn(*args, stop=flag, out=out)
+        torch.cuda.synchronize()
+        same = torch.equal(out, ref)
+        print(f"guard {name} {tag}: flag set leaves the output "
+              f"{'untouched' if untouched else 'WRITTEN'}; flag clear "
+              f"bit-equal to the unguarded launch: {same}")
+        if not (untouched and same):
+            fail(f"guard {name} {tag}: untouched {untouched}, equal {same}")
+        report.setdefault("guards", []).append(
+            {"name": name, "tag": tag, "untouched": untouched,
+             "bit_equal": same})
+        del ref, out
+
+
+def check_convergence(dev, cfg, report: dict) -> None:
+    """Phase 2a, the convergence kernel at levels 0 and 5 of 16 MP: (dh,
+    dv) within 1e-5 relative of the plain version (float32 torch.sum)
+    and 2e-6 of a float64 sum, the same bits on a second run, the flag
+    set or left as the plain version sets it (a threshold under and over
+    the change), nothing written once it is set; timed in the trace's
+    form (the same work, no flag): call ms, device ms (a CUDA graph), the
+    plain version and the bound (five planes read once)."""
+    from ug_stereomatcher_tpu_torch.ops.cuda import convergence as conv
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    entry = report.setdefault("convergence", {"max_abs_err": 0.0,
+                                              "bit_exact": False,
+                                              "cases": []})
+    for level in CONVERGENCE_LEVELS:
+        h, w = cfg.dims_chain(H, W)[level]
+        new = torch.rand(3, h, w, generator=gen, device=dev)
+        new[:2] = new[:2] * 6.0 - 3.0
+        old = new + (torch.rand(3, h, w, generator=gen, device=dev) - 0.5)
+        c = new[2].double()
+        gold = [((new[k] - old[k]).abs() * new[2]).double().sum().item()
+                / c.sum().item() for k in (0, 1)]
+
+        def run(step, thr):
+            buf = conv.level_buffer(2, dev)
+            step(new, old, 1, buf, thr)
+            return buf
+
+        got, again = run(conv.convergence_step, None), run(
+            conv.convergence_step, None)
+        ref = run(conv.convergence_step_plain, None)
+        torch.cuda.synchronize()
+        d, dref = conv.deltas(got)[1].tolist(), conv.deltas(ref)[1].tolist()
+        rel_plain = max(abs(a / b - 1) for a, b in zip(d, dref))
+        rel_gold = max(abs(a / b - 1) for a, b in zip(d, gold))
+        err = max(abs(a - b) for a, b in zip(d, dref))
+        repeat = torch.equal(got, again)
+        flags = []
+        for thr in (0.9 * max(gold), 1.1 * max(gold)):
+            k, p = run(conv.convergence_step, thr), run(
+                conv.convergence_step_plain, thr)
+            flags.append((k[:2].tolist(), p[:2].tolist()))
+        before = k.clone()
+        conv.convergence_step(old, new, 0, k, 0.0)   # the flag is set
+        torch.cuda.synchronize()
+        idle = torch.equal(k, before)
+        tag = f"level{level}"
+        print(f"kernel convergence {tag} {h}x{w} (dh, dv) kernel {d} plain "
+              f"{dref} float64 {gold}: rel to plain {rel_plain:.3e}, to "
+              f"float64 {rel_gold:.3e}, repeats bit for bit {repeat}; "
+              f"(stop, last) kernel/plain under and over the change "
+              f"{flags}; after the exit it writes nothing: {idle}")
+        if not (rel_plain <= 1e-5 and rel_gold <= 2e-6 and repeat and idle
+                and all(a == b for a, b in flags)
+                and [f[0] for f in flags] == [[0, 1], [1, 1]]):
+            fail(f"convergence {tag}: disagrees with its plain version or "
+                 f"float64 (rel {rel_plain}, {rel_gold}), repeat {repeat}, "
+                 f"flags {flags}, after the exit {idle}")
+        buf = conv.level_buffer(2, dev)
+        case = {"tag": tag, "in": f"3x{h}x{w}", "bit_exact": False,
+                "max_abs_err": err, "rel_to_plain": rel_plain,
+                "rel_to_float64": rel_gold,
+                "ms": cuda_ms(lambda: conv.convergence_step(new, old, 0,
+                                                            buf)),
+                "device_ms": graph_ms(lambda: conv.convergence_step(
+                    new, old, 0, buf)),
+                "plain_ms": cuda_ms(lambda: conv.convergence_step_plain(
+                    new, old, 0, buf)), "library_ms": None}
+        case["bound_ms"], case["bound_by"] = bound(
+            CONVERGENCE_BYTES * h * w, CONVERGENCE_OPS * h * w)
+        entry["cases"].append(case)
+        entry["max_abs_err"] = max(entry["max_abs_err"], err)
+        print(f"kernel convergence[{len(entry['cases']) - 1}] {tag} "
+              f"in={case['in']} max_abs_err={err} " + " ".join(
+                  f"{k}={case[k]:.4f}" for k in (
+                      "ms", "device_ms", "plain_ms", "bound_ms")))
+        del new, old, c, got, again, ref, k, p, before, buf
         torch.cuda.empty_cache()
 
 
@@ -1172,14 +1301,20 @@ def mode2_slices(dev, cfg, bil, left, right, slices: dict) -> None:
 
 def early_exit_slice(dev, cfg, left, right, label: str, gate: float,
                      ref_summary: dict) -> dict:
-    """Phase 3d, (k) and (l): StereoEngine.match with early exit.  The
-    counts are set to 0 just before the match and read just after: warp,
-    direction and smooth once per iteration that ran (the host reads of
-    the exit test, one per iteration of levels 0-5), the level kernel
-    still at 8, the rest as in the fixed schedule.  Then each level
-    driven alone from the same pyramid gives its iterations (warp
-    launches) and the same bits.  Value gates, latency and busy share
-    beside the fixed schedule's slice ``ref_summary``."""
+    """Phase 3d, (k) and (l): StereoEngine.match with early exit, decided
+    on the card.  The counts are set to 0 just before the match and read
+    just after: the whole schedule is launched, warp, direction and smooth
+    as in the fixed schedule (the level kernel at 8), and one convergence
+    test per iteration of the levels that may exit (42); no host read;
+    ``iterations_run()`` gives the iterations that did work.  Then each
+    per-iteration level driven alone from the same pyramid and state, on
+    the device loop and on the host-read loop (``exit_loop="host"``) on
+    the card: the same iterations and the same bits, where no change of an
+    iteration that ran lies within 1e-5 (relative) of the threshold (the
+    level's convergence trace; asserted, since the two loops add in
+    another order); the chain of levels equals the match.  Value gates,
+    latency and busy share beside the fixed schedule's slice
+    ``ref_summary``."""
     from ug_stereomatcher_tpu_torch import StereoEngine
     from ug_stereomatcher_tpu_torch import match as match_mod
     from ug_stereomatcher_tpu_torch import pyramid as pyr
@@ -1199,50 +1334,98 @@ def early_exit_slice(dev, cfg, left, right, label: str, gate: float,
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
     counts, syncs = _build.launch_counts(), match_mod.host_syncs()
+    iters = match_mod.iterations_run()
     peak = torch.cuda.max_memory_allocated(dev)
+    n = cfg.num_levels(H, W)
+    dims = cfg.dims_chain(H, W)
+    exit_levels = [i for i in range(n) if cfg.iters_for_level(i) > 1
+                   and not match_mod.uses_level_resident(
+                       *dims[i], None, cfg.smooth_passes_for_level(i),
+                       cfg.iters_for_level(i), cfg.interp, dev)]
     want = expected_launches(cfg, H, W)
-    form = "" if cfg.interp == "nearest" else f"_{cfg.interp}"
-    full = want[f"warp{form}"]
-    for name in (f"warp{form}", "direction", "smooth"):
-        want[name] = syncs
+    want["convergence"] = sum(cfg.iters_for_level(i) for i in exit_levels)
     print(f"{label} launches {json.dumps(counts, sort_keys=True)} expected "
           f"{json.dumps(want, sort_keys=True)}; host reads {syncs}, "
-          f"iterations {syncs} of {full}")
-    if counts != want or not 0 < syncs <= full:
-        fail(f"{label}: launch counts {counts} differ from {want}")
+          f"iterations run {iters} of {want['convergence']}")
+    if counts != want or syncs != 0 or not 0 < iters <= want["convergence"]:
+        fail(f"{label}: launch counts {counts} (expected {want}), host "
+             f"reads {syncs}, iterations {iters}")
     check_planes(label, trip, (H, W))
     vals = value_gates(label, trip, 64, gate)
 
-    # each per-iteration level alone, from the same pyramid and states
-    n = cfg.num_levels(H, W)
-    dims = cfg.dims_chain(H, W)
+    # each level alone, from the same pyramid and states: the device loop
+    # against the host-read loop on the card
+    thr = float(np.float32(cfg.early_exit_delta))
     lp, rp = pyr.build_pyramid_pair(
         left.movedim(-1, 0).float().contiguous(),
         right.movedim(-1, 0).float().contiguous(), cfg, n)
     state = torch.zeros((3,) + tuple(dims[n - 1]), device=dev)
-    iters = {}
+    levels = {}
     for i in range(n - 1, -1, -1):
-        _build.reset_launch_counts()
-        state = match_mod.match_level(lp[i], rp[i], state, i, cfg, i == n - 1)
-        torch.cuda.synchronize()
-        if not match_mod.uses_level_resident(*dims[i]):
-            iters[i] = _build.launch_counts().get(f"warp{form}", 0)
+        coarsest = i == n - 1
+        if i in exit_levels:
+            _, deltas = match_mod.level_convergence_trace(
+                lp[i], rp[i], state, i, cfg, coarsest)
+            match_mod.reset_host_syncs()
+            ref = match_mod.match_level(lp[i], rp[i], state, i, cfg,
+                                        coarsest, exit_loop="host")
+            host_iters = match_mod.host_syncs()
+            match_mod.reset_host_syncs()
+            state = match_mod.match_level(lp[i], rp[i], state, i, cfg,
+                                          coarsest)
+            got = match_mod.iterations_run()
+            reads = match_mod.host_syncs()
+            change = deltas.max(dim=1).values[:host_iters].double()
+            margin = (change / thr - 1).abs().min().item()
+            same = torch.equal(state, ref)
+            levels[i] = {"iterations": got, "host_loop_iterations":
+                         host_iters, "of": cfg.iters_for_level(i),
+                         "bit_equal": same, "margin": margin,
+                         "changes": change.tolist()}
+            if not (got == host_iters and same and reads == 0
+                    and margin > 1e-5):
+                fail(f"{label} level {i}: device loop {got} iterations "
+                     f"({reads} host reads), host-read loop {host_iters}, "
+                     f"bit-equal {same}, closest change {margin:.2e} "
+                     f"(relative) from the threshold")
+            del ref, deltas
+        else:
+            state = match_mod.match_level(lp[i], rp[i], state, i, cfg,
+                                          coarsest)
         if i:
             state = pyr.upsample_to_level(state, *dims[i - 1], cfg)
     same = torch.equal(state, trip)
-    print(f"{label} iterations per level (warp launches) "
-          + " ".join(f"{i}:{k}/{cfg.iters_for_level(i)}"
-                     for i, k in sorted(iters.items()))
-          + f"; level by level equals the match: {same}")
-    if not same or sum(iters.values()) != syncs:
+    print(f"{label} iterations per level (device loop / host-read loop on "
+          f"the card, of the schedule; closest change to the threshold) "
+          + " ".join(f"{i}:{v['iterations']}/{v['host_loop_iterations']}/"
+                     f"{v['of']} ({v['margin']:.2e})"
+                     for i, v in sorted(levels.items()))
+          + f"; each level bit-equal to the host-read loop; the levels "
+          f"chained equal the match: {same}")
+    if not same or sum(v["iterations"] for v in levels.values()) != iters:
         fail(f"{label}: the levels driven alone differ from the match")
+    del lp, rp, state
     summary = warm_summary(label, call, first_s, counts, peak)
-    print(f"{label} warm_median_s={summary['warm_median_s']:.4f} busy_share="
-          f"{summary['profile']['busy_share']:.3f} against the fixed "
-          f"schedule's {ref_summary['warm_median_s']:.4f} / "
-          f"{ref_summary['profile']['busy_share']:.3f}")
-    return {**summary, **vals, "host_syncs": syncs,
-            "iterations_per_level": iters, "fixed_iterations": full}
+    warm = summary["warm_s"]
+    # the host's share: the time until the call returns (everything
+    # enqueued, nothing read back), median of 5
+    enqueue = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        call()
+        enqueue.append(time.perf_counter() - t0)
+        torch.cuda.synchronize()
+    enqueue_s = statistics.median(enqueue)
+    print(f"{label} warm_median_s={summary['warm_median_s']:.4f} "
+          f"(spread {min(warm):.4f}-{max(warm):.4f}) busy_share="
+          f"{summary['profile']['busy_share']:.3f} enqueue_s="
+          f"{enqueue_s:.4f} against the fixed "
+          f"schedule's {ref_summary['warm_median_s']:.4f} (spread "
+          f"{min(ref_summary['warm_s']):.4f}-{max(ref_summary['warm_s']):.4f})"
+          f" / {ref_summary['profile']['busy_share']:.3f}")
+    return {**summary, **vals, "host_syncs": syncs, "iterations_run": iters,
+            "levels": levels, "fixed_iterations": want["convergence"],
+            "enqueue_s": enqueue_s}
 
 
 def convergence_trace(dev, cfg, left, right, report: dict) -> None:
@@ -2258,6 +2441,10 @@ KERNELS = {
     "resample_bilinear_range_map": ("resample.cu",
                                     "ops/pallas/resample.py:223", "geometry",
                                     "resample_bilinear"),
+    # early exit's convergence test: no pallas_call in the JAX package,
+    # whose while loop computes it in XLA (weighted_difference)
+    "convergence": ("convergence.cu", "ops/convergence.py:19",
+                    "early_exit_nearest"),
 }
 
 
@@ -2427,8 +2614,9 @@ def ab_child(tree: str, matches: int) -> dict:
     right = torch.from_numpy(right_np).to(dev)
     times = {"tree": tree}
 
-    def time_entry(label, interp, entry):
-        eng = StereoEngine(MatcherConfig(interp=interp), device=dev)
+    def time_entry(label, interp, entry, early=None):
+        eng = StereoEngine(MatcherConfig(interp=interp,
+                                         early_exit_delta=early), device=dev)
         fn = getattr(eng, entry, None)
         if fn is None:   # a tree from before mode 2
             return
@@ -2489,6 +2677,14 @@ def ab_child(tree: str, matches: int) -> dict:
         "smooth_row_halo_ms": cuda_ms(lambda: smooth.fused_smooth_average(
             smooth_band, 10, row0=a, global_h=H)),
     })
+    # the same 16 MP kernels alone (a CUDA graph), the host out of the way
+    for key, call in (
+            ("warp", lambda: warp.warp(img, dh, dv)),
+            ("warp_bilinear", lambda: warp.warp(img, dh, dv, "bilinear")),
+            ("direction", lambda: direction.fused_direction_update(
+                img, other, bl2, state, 1.0, False)),
+            ("smooth", lambda: smooth.fused_smooth_average(state, 10))):
+        times[f"{key}_device_ms"] = graph_ms(call)
     del img, other, bl2, state, dh, dv, sh, sv, band_img, band_other
     del band_bl2, band_state, smooth_band
 
@@ -2526,6 +2722,9 @@ def ab_child(tree: str, matches: int) -> dict:
     times.update(host_costs(dev, resample))
     # last, so that every tree's kernels are timed after the same work
     time_entry("foveated", "nearest", "match_foveated")
+    # early exit at slices (k) and (l)'s thresholds
+    time_entry("ee_match", "nearest", "match", early=0.1)
+    time_entry("ee_bilinear_match", "bilinear", "match", early=0.02)
     return times
 
 

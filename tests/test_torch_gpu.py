@@ -17,7 +17,11 @@ resample and the level kernel at the fovea schedules are bit-exact; the
 foveated stack and hierarchical map on the card agree with the plain
 engine under the quantile rule and with the per-iteration route bit for
 bit, and the row-sharded foveated batch equals the unsharded stack.
-Extras and geometry: early exit on the card against the CPU engine under
+Early exit: the convergence kernel against its plain version (1e-5
+relative; 2e-6 of float64) and its flag, the guarded warp, direction and
+smooth writing nothing with the flag set and bit-equal with it clear.
+Extras and geometry: early exit on the card with no host read, each level
+equal to the host-read loop on the card, against the CPU engine under
 the quantile rule, the left-right check through one warp launch on a
 2-plane stack, profile_match equal to match bit for bit, triangulation
 under a relative-quantile rule and the range-map resizes against the CPU.
@@ -421,6 +425,115 @@ def test_smooth_one_launch_up_to_k_passes(cuda):
     assert _build.launch_counts() == {"smooth": 2}
 
 
+# ------------------------------------------- early exit on the card
+def conv_states(dev, h, w, seed=0):
+    new = torch.stack([rand(dev, h, w, lo=-3.0, hi=3.0, seed=seed),
+                       rand(dev, h, w, lo=-1.0, hi=1.0, seed=seed + 1),
+                       rand(dev, h, w, lo=0.0, hi=1.0, seed=seed + 2)])
+    old = new + torch.stack([rand(dev, h, w, lo=-0.2, hi=0.2, seed=seed + s)
+                             for s in (3, 4, 5)])
+    return new, old
+
+
+def changes_f64(new, old):
+    """(dh, dv) in float64 from the float32 products, as the kernel and
+    the plain version round them."""
+    c = new[2]
+    return [((new[k] - old[k]).abs() * c).double().sum().item()
+            / c.double().sum().item() for k in (0, 1)]
+
+
+# a ragged pixel count (no 16-byte loads), one block, many blocks (the
+# grid capped, each thread several float4s), level 5 of 16 MP
+@pytest.mark.parametrize("h,w", [(1, 1), (7, 13), (33, 64), (301, 517),
+                                 (576, 870)])
+def test_convergence_kernel_matches_plain(cuda, h, w):
+    """(dh, dv) within 1e-5 relative of the plain version (float32 sums)
+    and 2e-6 of float64, the same bits on a second run; the flag set as
+    the plain version sets it, and nothing done once it is set."""
+    from ug_stereomatcher_tpu_torch.ops.cuda import convergence as conv
+    new, old = conv_states(cuda, h, w)
+    gold = changes_f64(new, old)
+    for thr in (None, 0.0, max(gold) * 1.01, float("inf")):
+        got = conv.convergence_step(new, old, 1, conv.level_buffer(3, cuda),
+                                    thr)
+        again = conv.convergence_step(new, old, 1,
+                                      conv.level_buffer(3, cuda), thr)
+        ref = conv.convergence_step_plain(new, old, 1,
+                                          conv.level_buffer(3, cuda), thr)
+        torch.cuda.synchronize()
+        assert torch.equal(got, again)
+        d, dref = conv.deltas(got), conv.deltas(ref)
+        torch.testing.assert_close(d, dref, rtol=1e-5, atol=0)
+        np.testing.assert_allclose(d[1].cpu().numpy(), gold, rtol=2e-6)
+        assert (d[[0, 2]] == 0).all()
+        assert got[:2].tolist() == ref[:2].tolist() == [
+            int(thr is not None and thr > max(gold)), 1]
+        assert got[2].item() == 0   # the ticket, back to 0
+    before = got.clone()
+    conv.convergence_step(old, new, 2, got, 0.0)   # the flag is set
+    torch.cuda.synchronize()
+    assert torch.equal(got, before)
+
+
+@pytest.mark.parametrize("case", ["nan_change", "zero_confidence"])
+def test_convergence_kernel_nan_and_zero_confidence(cuda, case):
+    """A NaN change stops the level at any threshold (the max carries it);
+    an all-zero confidence gives 0: both as the plain version."""
+    from ug_stereomatcher_tpu_torch.ops.cuda import convergence as conv
+    new, old = conv_states(cuda, 40, 64, seed=3)
+    if case == "nan_change":
+        new[1, 5, 6] = float("nan")
+    else:
+        new[2] = 0.0
+    for thr in (0.0, 0.1):
+        got = conv.convergence_step(new, old, 0, conv.level_buffer(1, cuda),
+                                    thr)
+        ref = conv.convergence_step_plain(new, old, 0,
+                                          conv.level_buffer(1, cuda), thr)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(conv.deltas(got), conv.deltas(ref),
+                                   rtol=1e-5, atol=0, equal_nan=True)
+        assert got[0].item() == ref[0].item() == int(
+            case == "nan_change" or thr > 0)
+
+
+def guarded_kernel_cases(dev, h, w):
+    left = rand(dev, 3, h, w, hi=255.0, seed=1)
+    warped = torch.clamp(left + rand(dev, 3, h, w, lo=-20.0, hi=20.0,
+                                     seed=2), 0, 255)
+    state = torch.stack([rand(dev, h, w, lo=-2.0, hi=5.0, seed=3),
+                         rand(dev, h, w, lo=-1.0, hi=1.0, seed=4),
+                         rand(dev, h, w, lo=0.05, hi=1.0, seed=5)])
+    bl2 = blur.fused_blur_gaussian_plain(left * left, "clamp")
+    return [(warp.warp, (left, state[0], state[1], m))
+            for m in ("nearest", "bilinear")] + [
+        (direction.fused_direction_update,
+         (left, warped, bl2, state, 0.55, False, CONSTS)),
+        (smooth.fused_smooth_average, (state, 5)),
+        (smooth.fused_smooth_average, (state, 2 * smooth.max_chunk() + 3))]
+
+
+@pytest.mark.parametrize("h,w", [(37, 53), (202, 306)])
+def test_guarded_kernels(cuda, h, w):
+    """With the flag set, warp, direction and smooth (one launch and
+    several) leave their output as it was (a NaN sentinel); with it clear
+    they write what the unguarded launch writes, bit for bit, and count
+    one launch a call either way."""
+    for fn, args in guarded_kernel_cases(cuda, h, w):
+        ref = fn(*args)
+        flag = torch.ones(1, dtype=torch.int32, device=cuda)
+        out = torch.full_like(ref, float("nan"))
+        _build.reset_launch_counts()
+        assert fn(*args, stop=flag, out=out) is out
+        torch.cuda.synchronize()
+        assert torch.isnan(out).all(), fn.__name__
+        flag.zero_()
+        assert torch.equal(fn(*args, stop=flag, out=out), ref)
+        torch.cuda.synchronize()
+        assert sum(_build.launch_counts().values()) == 2
+
+
 def test_each_wrapper_counts_one_launch_per_call(cuda):
     _build.reset_launch_counts()
     x = rand(cuda, 3, 20, 40, lo=0.1, hi=1.0)
@@ -698,9 +811,12 @@ def test_match_batch_foveated_on_card_mesh_equals_match_foveated(cuda,
 # ------------------------------------------------ extras and geometry
 @pytest.mark.parametrize("interp,thr", [("nearest", 0.1), ("bilinear", 0.02)])
 def test_early_exit_on_card_matches_plain_engine(cuda, interp, thr):
-    """Early exit (the bench's thresholds) on the card against the CPU
-    engine's per-iteration route under the quantile rule; the iterations
-    that ran (warp launches) and the host reads are printed."""
+    """Early exit (the bench's thresholds) on the card: no host read, the
+    whole schedule launched (a convergence test an iteration), and each
+    level driven alone stops where the host-read loop stops on the card,
+    with the same bits; against the CPU engine's per-iteration route under
+    the quantile rule."""
+    from ug_stereomatcher_tpu_torch import pyramid as pyr
     cfg = MatcherConfig(interp=interp, fovea_level=3, early_exit_delta=thr)
     left, right = scene.make_pair(120, 168)
     _build.reset_launch_counts()
@@ -709,16 +825,41 @@ def test_early_exit_on_card_matches_plain_engine(cuda, interp, thr):
         left, right)
     torch.cuda.synchronize()
     counts, syncs = _build.launch_counts(), match_mod.host_syncs()
+    iters = match_mod.iterations_run()
     cpu = StereoEngine(cfg, device="cpu", resident_max_pixels=0).match(
         left, right)
     n = cfg.num_levels(120, 168)
     full = sum(cfg.iters_for_level(i) for i in range(n))
     form = "" if interp == "nearest" else "_bilinear"
-    print(f"early exit {interp} {thr}: {counts[f'warp{form}']} of {full} "
-          f"iterations, {syncs} host reads")
-    assert counts[f"warp{form}"] == syncs <= full
+    print(f"early exit {interp} {thr}: {iters} of {full} iterations, "
+          f"{syncs} host reads")
+    assert syncs == 0 and 0 < iters <= full
+    assert counts[f"warp{form}"] == counts["direction"] == full
+    assert counts["convergence"] == sum(
+        cfg.iters_for_level(i) for i in range(n)
+        if cfg.iters_for_level(i) > 1)
     d = (gpu.triplet.cpu() - cpu.triplet).abs().numpy()
     assert np.median(d) < 1e-3 and (d > 0.02).mean() < 0.02
+
+    lp, rp = pyr.build_pyramid_pair(
+        *(torch.from_numpy(x).to(cuda).movedim(-1, 0).float().contiguous()
+          for x in (left, right)), cfg, n)
+    state = torch.zeros((3,) + tuple(lp[n - 1].shape[-2:]), device=cuda)
+    total = 0
+    for i in range(n - 1, -1, -1):
+        match_mod.reset_host_syncs()
+        ref = match_mod.match_level(lp[i], rp[i], state, i, cfg, i == n - 1,
+                                    0, exit_loop="host")
+        host_iters = match_mod.host_syncs()
+        match_mod.reset_host_syncs()
+        state = match_mod.match_level(lp[i], rp[i], state, i, cfg,
+                                      i == n - 1, 0)
+        assert match_mod.iterations_run() == host_iters, i
+        assert torch.equal(state, ref), i
+        total += host_iters
+        if i:
+            state = pyr.upsample_to_level(state, *lp[i - 1].shape[-2:], cfg)
+    assert total == iters and torch.equal(state, gpu.triplet)
 
 
 @pytest.mark.parametrize("method", ["nearest", "bilinear"])

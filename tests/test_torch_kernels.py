@@ -271,15 +271,15 @@ def test_build_command_targets_sm90a_from_csrc_only():
     srcs = [a for cmd in cmds for a in cmd if a.endswith((".cu", ".cuh"))]
     assert len(srcs) == len(cmds) - 1
     assert {p.rsplit("/", 1)[-1] for p in srcs} == {
-        "blur.cu", "direction.cu", "level.cu", "resample.cu", "smooth.cu",
-        "warp.cu"}
+        "blur.cu", "convergence.cu", "direction.cu", "level.cu",
+        "resample.cu", "smooth.cu", "warp.cu"}
     for s in srcs:
         assert s.startswith(str(_build.CSRC_DIR) + "/")
 
 
 def test_build_hash_covers_every_source():
     names = {p.name for p in _build.sources()}
-    assert {"common.cuh", "stencils.cuh"} <= names and len(names) == 8
+    assert {"common.cuh", "stencils.cuh"} <= names and len(names) == 9
 
 
 def test_missing_nvcc_raises_clear_error(monkeypatch, tmp_path):

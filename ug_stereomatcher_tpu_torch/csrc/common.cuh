@@ -29,6 +29,14 @@ __host__ __device__ inline Taps5 make_taps5(float t0, float t1, float t2,
   return tp;
 }
 
+// The early-exit guard of warp, direction and smooth: whether the flag
+// is given and set.  A kernel tests it first thing and returns, so a
+// launch after its level's exit reads and writes nothing.  The flag is
+// set by an earlier launch on the stream, never during this one.
+__device__ __forceinline__ bool stopped(const int* stop) {
+  return stop != nullptr && __ldg(stop) != 0;
+}
+
 __device__ __forceinline__ int clampi(int v, int lo, int hi) {
   return v < lo ? lo : (v > hi ? hi : v);
 }

@@ -40,6 +40,9 @@
 // stencil reaches: Gc(W^2) of an output row's neighbours reads W rows
 // within 3 of it, all in the band, so the in-tile Gc(W^2) serves this
 // form too.
+//
+// Early-exit guard (stop not null; whole image only): every block returns
+// before its first load while the flag is set (common.cuh stopped()).
 #include "stencils.cuh"
 
 namespace {
@@ -57,7 +60,9 @@ __global__ void __launch_bounds__(Tile::kThreads, 3)
                      const float* __restrict__ bl2,
                      const float* __restrict__ disp, float* __restrict__ out,
                      int H, int row0, int Hl, int halo, int W, float thr,
-                     int replace, ugsm::Taps5 taps, ugsm::DirConsts k) {
+                     int replace, ugsm::Taps5 taps, ugsm::DirConsts k,
+                     const int* __restrict__ stop) {
+  if (ugsm::stopped(stop)) return;
   extern __shared__ float4 smem[];
   Tile& t = *reinterpret_cast<Tile*>(smem);
   float* rows = reinterpret_cast<float*>(smem) + sizeof(Tile) / sizeof(float);
@@ -83,7 +88,7 @@ cudaError_t launch(dim3 grid, cudaStream_t s, const float* left,
                    const float* warped, const float* bl2, const float* disp,
                    float* out, int H, int row0, int Hl, int halo, int W,
                    float thr, int replace, ugsm::Taps5 taps,
-                   ugsm::DirConsts k) {
+                   ugsm::DirConsts k, const int* stop) {
   const cudaError_t e =
       cudaFuncSetAttribute(direction_kernel<BAND>,
                            cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -92,7 +97,7 @@ cudaError_t launch(dim3 grid, cudaStream_t s, const float* left,
   direction_kernel<BAND><<<grid, dim3(Tile::kTW, Tile::kTH / Tile::kRows),
                            kSmemBytes, s>>>(left, warped, bl2, disp, out, H,
                                             row0, Hl, halo, W, thr, replace,
-                                            taps, k);
+                                            taps, k, stop);
   return cudaGetLastError();
 }
 
@@ -103,7 +108,7 @@ cudaError_t launch(dim3 grid, cudaStream_t s, const float* left,
 // [row0 - 3, row0 + Hl + 3) of the H-row image; bl2, disp and out are
 // (3, Hl, W).  Gaussian taps (t_outer, t_inner, t_centre), all nonzero;
 // consts as MatcherConfig's (no_peak, affine_scale, affine_bias,
-// blend_new, blend_old).
+// blend_new, blend_old).  stop: the early-exit flag, or null.
 UGSM_API int ugsm_direction_update(const float* left, const float* warped,
                                    const float* bl2, const float* disp,
                                    float* out, int H, int W, int Hl, int row0,
@@ -111,7 +116,8 @@ UGSM_API int ugsm_direction_update(const float* left, const float* warped,
                                    float t_outer, float t_inner,
                                    float t_centre, float no_peak,
                                    float aff_scale, float aff_bias,
-                                   float w_new, float w_old, void* stream) {
+                                   float w_new, float w_old,
+                                   const int* stop, void* stream) {
   const bool whole = halo == 0;
   if (H < 1 || W < 1 || Hl < 1 || (Hl + Tile::kTH - 1) / Tile::kTH > 65535 ||
       t_outer == 0.0f || t_inner == 0.0f || t_centre == 0.0f ||
@@ -126,8 +132,8 @@ UGSM_API int ugsm_direction_update(const float* left, const float* warped,
   const ugsm::DirConsts k{no_peak, aff_scale, aff_bias, w_new, w_old};
   return (int)(whole ? launch<false>(grid, s, left, warped, bl2, disp, out, H,
                                      row0, Hl, halo, W, threshold, replace,
-                                     taps, k)
+                                     taps, k, stop)
                      : launch<true>(grid, s, left, warped, bl2, disp, out, H,
                                     row0, Hl, halo, W, threshold, replace,
-                                    taps, k));
+                                    taps, k, stop));
 }

@@ -35,6 +35,10 @@
 // image, "keep row 0" and the clamps resolve at the image's global rows,
 // and a cut edge of the band spoils one line per pass as a window edge
 // does, so after n passes and the average the Hl output rows are exact.
+//
+// Early-exit guard (stop not null): every block of every chunk returns
+// before its first load while the flag is set (common.cuh stopped()), so
+// `out` keeps what it held.
 #include "stencils.cuh"
 
 namespace {
@@ -62,11 +66,13 @@ struct Chunk {
   float* out;
   int H, W, in_row0, in_rows, out_row0, out_rows, wr0, wr1, k;
   ugsm::Taps5 avg;
+  const int* stop;  // the early-exit flag, or null
 };
 
 template <bool AVERAGE>
 __global__ void __launch_bounds__(kThreads)
     smooth_chunk_kernel(const Chunk a) {
+  if (ugsm::stopped(a.stop)) return;
   extern __shared__ float win[];
   const int H = a.H, W = a.W, h = a.k + (AVERAGE ? 1 : 0);
   const int r0 = a.wr0 + blockIdx.y * kTH, c0 = blockIdx.x * kTW;
@@ -132,10 +138,11 @@ UGSM_API int ugsm_smooth_max_chunk() { return kMaxChunk; }
 // [row0 - halo, row0 + Hl + halo) of the H-row image; out is (3, Hl, W).
 // tmp_a (with n_passes > kMaxChunk) and tmp_b (with n_passes > 2
 // kMaxChunk) are scratch states of the shape of `state`; null otherwise.
+// stop: the early-exit flag, or null.
 UGSM_API int ugsm_smooth_average(const float* state, float* out, float* tmp_a,
                                  float* tmp_b, int H, int W, int Hl, int row0,
                                  int halo, int n_passes, float avg_tap,
-                                 void* stream) {
+                                 const int* stop, void* stream) {
   const bool whole = halo == 0;
   if (H < 1 || W < 1 || Hl < 1 || n_passes < 0 || avg_tap == 0.0f ||
       (whole ? (Hl != H || row0 != 0)
@@ -151,7 +158,7 @@ UGSM_API int ugsm_smooth_average(const float* state, float* out, float* tmp_a,
   const int hi = in_row0 + in_rows < H ? in_row0 + in_rows : H;
   Chunk a{state, nullptr, H, W, in_row0, in_rows, in_row0, in_rows,
           lo, hi, kMaxChunk,
-          ugsm::make_taps5(0.0f, avg_tap, avg_tap, avg_tap, 0.0f)};
+          ugsm::make_taps5(0.0f, avg_tap, avg_tap, avg_tap, 0.0f), stop};
   float* tmp[2] = {tmp_a, tmp_b};
   int left = n_passes;
   for (int i = 0; left > kMaxChunk; ++i, left -= kMaxChunk) {

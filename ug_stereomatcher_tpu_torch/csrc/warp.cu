@@ -39,6 +39,12 @@
 // by the caller; sources and clamps are in global rows.  The TPU form
 // gathers from the shard's block plus a window of halo rows and needs the
 // overflow guard when a field leaves it; the whole image needs neither.
+//
+// Early-exit guard: given a flag (`stop`, not null), every block returns
+// before its first load or store while the flag is set, so a level's
+// schedule can be enqueued whole and the iterations after its exit cost
+// a launch each (match.match_level; the flag is set by convergence.cu).
+// Null on the fixed schedule and the row-sharded form.
 #include <climits>
 
 #include "stencils.cuh"
@@ -104,7 +110,9 @@ template <bool BILINEAR, int K>
 __global__ void __launch_bounds__(kBX * kBY)
     warp_kernel(const float* __restrict__ img, const float* __restrict__ dh,
                 const float* __restrict__ dv, float* __restrict__ out, int C,
-                int H, int W, int Hl, int row0) {
+                int H, int W, int Hl, int row0,
+                const int* __restrict__ stop) {
+  if (ugsm::stopped(stop)) return;
   const int plane = H * W, out_plane = Hl * W;
   const int x0 = blockIdx.x * (kBX * K) + threadIdx.x;
   for (int r = blockIdx.y * kBY + threadIdx.y; r < Hl;
@@ -154,12 +162,13 @@ __global__ void __launch_bounds__(kBX * kBY)
 
 template <bool BILINEAR, int K>
 void launch(const float* img, const float* dh, const float* dv, float* out,
-            int C, int H, int W, int Hl, int row0, cudaStream_t s) {
+            int C, int H, int W, int Hl, int row0, const int* stop,
+            cudaStream_t s) {
   const int strips = (Hl + kBY - 1) / kBY;
   const dim3 grid((W + kBX * K - 1) / (kBX * K),
                   strips < 65535 ? strips : 65535);
-  warp_kernel<BILINEAR, K><<<grid, dim3(kBX, kBY), 0, s>>>(img, dh, dv, out,
-                                                           C, H, W, Hl, row0);
+  warp_kernel<BILINEAR, K><<<grid, dim3(kBX, kBY), 0, s>>>(
+      img, dh, dv, out, C, H, W, Hl, row0, stop);
 }
 
 }  // namespace
@@ -167,18 +176,19 @@ void launch(const float* img, const float* dh, const float* dv, float* out,
 // img: (C, H, W) with C * H * W < 2^31; dh, dv, out: rows [row0, row0 +
 // Hl) of the (H, W) grid (Hl = H, row0 = 0 for the whole image).
 // bilinear == 0: point sampling; != 0: CUDA linear filtering with float32
-// weights (never the texture unit's 9-bit filter).
+// weights (never the texture unit's 9-bit filter).  stop: the early-exit
+// flag, or null.
 UGSM_API int ugsm_warp(const float* img, const float* dh, const float* dv,
                        float* out, int C, int H, int W, int Hl, int row0,
-                       int bilinear, void* stream) {
+                       int bilinear, const int* stop, void* stream) {
   if (C < 1 || H < 1 || W < 1 || Hl < 1 || row0 < 0 || row0 + Hl > H ||
       (long long)C * H * W > INT_MAX)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
   if (bilinear) {
-    launch<true, 2>(img, dh, dv, out, C, H, W, Hl, row0, s);
+    launch<true, 2>(img, dh, dv, out, C, H, W, Hl, row0, stop, s);
   } else {
-    launch<false, 4>(img, dh, dv, out, C, H, W, Hl, row0, s);
+    launch<false, 4>(img, dh, dv, out, C, H, W, Hl, row0, stop, s);
   }
   return (int)cudaGetLastError();
 }

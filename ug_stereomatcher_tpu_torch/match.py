@@ -23,8 +23,13 @@ With ``cfg.early_exit_delta`` set, a per-iteration level stops once an
 iteration changes the disparity by less than the threshold (the
 reference's dormant convergence test, MatchGPULib.cpp:1323-1334); the
 level-resident route runs its full schedule, as the JAX package's does.
-``level_convergence_trace`` runs one level's full schedule and returns
-the change of every iteration.
+On the card the exit is decided on the device, as the JAX package's
+``lax.while_loop`` decides it: the level's whole schedule is enqueued
+with a convergence kernel after each iteration, and the kernels after
+the exit do nothing (``device_exit_loop``).  On the CPU the loop reads
+each change on the host (``host_exit_loop``, the plain version of that
+loop).  ``level_convergence_trace`` runs one level's full schedule and
+returns the change of every iteration.
 
 The JAX package's warp tiers exist only because a TPU cannot gather in
 2-D; the port's warp is one exact gather, so it has none.
@@ -39,18 +44,37 @@ import torch
 
 from ug_stereomatcher_tpu_torch import pyramid as pyr
 from ug_stereomatcher_tpu_torch.config import MatcherConfig, check_supported
-from ug_stereomatcher_tpu_torch.ops.cuda import level
+from ug_stereomatcher_tpu_torch.ops.cuda import convergence, level
 from ug_stereomatcher_tpu_torch.ops.cuda.blur import fused_blur_gaussian
 from ug_stereomatcher_tpu_torch.ops.cuda.direction import (  # noqa: F401
     direction_maps,
     fused_direction_update,
+    fused_direction_update_plain,
 )
 from ug_stereomatcher_tpu_torch.ops.cuda.level import level_resident_match
-from ug_stereomatcher_tpu_torch.ops.cuda.smooth import fused_smooth_average
-from ug_stereomatcher_tpu_torch.ops.cuda.warp import warp
+from ug_stereomatcher_tpu_torch.ops.cuda.smooth import (
+    fused_smooth_average,
+    fused_smooth_average_plain,
+)
+from ug_stereomatcher_tpu_torch.ops.cuda.warp import warp, warp_plain
 from ug_stereomatcher_tpu_torch.ops.convergence import weighted_difference
 
-LevelBody = Callable[[torch.Tensor, int, float], torch.Tensor]
+# body(state, m, threshold, stop=None, out=None): one iteration
+LevelBody = Callable[..., torch.Tensor]
+
+
+class LevelOps(NamedTuple):
+    """The ops of one iteration: the kernels' wrappers (``KERNEL_OPS``) or
+    their plain versions (``PLAIN_OPS``, which a CPU test runs the card's
+    loop with)."""
+    warp: Callable[..., torch.Tensor]
+    direction: Callable[..., torch.Tensor]
+    smooth: Callable[..., torch.Tensor]
+
+
+KERNEL_OPS = LevelOps(warp, fused_direction_update, fused_smooth_average)
+PLAIN_OPS = LevelOps(warp_plain, fused_direction_update_plain,
+                     fused_smooth_average_plain)
 
 # Levels of at most this many pixels run level-resident: levels 6-13 of a
 # 16 MP frame (level 6 is 407 x 615).  On an H100 the level kernel takes
@@ -60,18 +84,35 @@ LevelBody = Callable[[torch.Tensor, int, float], torch.Tensor]
 # add levels 5 and 4 (PERF.md).
 LEVEL_RESIDENT_MAX_PIXELS = 256 * 1024
 
-# Host reads of the early-exit test (one per iteration of a level that may
-# exit early; each waits for the device to finish that iteration).
+# Host reads of the early-exit test (one per iteration of a level on the
+# host-read loop; each waits for the device to finish that iteration).
 _HOST_SYNCS = [0]
+# Early-exit iterations run: the host-read loop's, counted on the host,
+# and per device the device loop's sum of its levels' last iterations
+# (a 0-d int32 tensor added to on the device) with one more per level.
+_ITERATIONS = [0]
+_DEVICE_LAST: dict = {}
 
 
 def host_syncs() -> int:
-    """Early-exit host reads since the last ``reset_host_syncs()``."""
+    """Early-exit host reads since the last ``reset_host_syncs()``: 0 on
+    the card, where the device decides each level's exit."""
     return _HOST_SYNCS[0]
 
 
+def iterations_run() -> int:
+    """Iterations that early-exit levels ran since the last
+    ``reset_host_syncs()``, on either loop: the sum of ``last + 1`` over
+    the levels.  It reads the device's counts, so it waits for the card;
+    the loops never read them."""
+    return _ITERATIONS[0] + sum(int(t) for t in _DEVICE_LAST.values())
+
+
 def reset_host_syncs() -> None:
+    """Set ``host_syncs()`` and ``iterations_run()`` to 0."""
     _HOST_SYNCS[0] = 0
+    _ITERATIONS[0] = 0
+    _DEVICE_LAST.clear()
 
 
 def _level_blurred_l2(left: torch.Tensor) -> torch.Tensor:
@@ -82,21 +123,25 @@ def _level_blurred_l2(left: torch.Tensor) -> torch.Tensor:
 
 def _make_level_body(left: torch.Tensor, right: torch.Tensor,
                      blurred_l2: torch.Tensor, cfg: MatcherConfig,
-                     is_coarsest: bool, n_smooth: int) -> LevelBody:
-    """One refinement iteration: ``body(state, m, threshold)`` maps the
-    (3, H, W) state [disp_h, disp_v, conf] to the next one."""
+                     is_coarsest: bool, n_smooth: int,
+                     ops: LevelOps = KERNEL_OPS) -> LevelBody:
+    """One refinement iteration: ``body(state, m, threshold, stop=None,
+    out=None)`` maps the (3, H, W) state [disp_h, disp_v, conf] to the
+    next one (written into ``out`` where given); with early exit's flag
+    ``stop`` set, its three launches do nothing."""
     consts = cfg.conf_consts
 
-    def body(state: torch.Tensor, m: int, threshold: float) -> torch.Tensor:
-        warped = warp(right, state[0], state[1], cfg.interp)
+    def body(state: torch.Tensor, m: int, threshold: float,
+             stop: Optional[torch.Tensor] = None,
+             out: Optional[torch.Tensor] = None) -> torch.Tensor:
+        warped = ops.warp(right, state[0], state[1], cfg.interp, stop=stop)
         # The coarsest level's first iteration replaces the confidence
         # instead of blending it (MatchGPULib.cpp:2223-2225).
-        state = fused_direction_update(left, warped, blurred_l2, state,
-                                       threshold, is_coarsest and m == 0,
-                                       consts)
+        state = ops.direction(left, warped, blurred_l2, state, threshold,
+                              is_coarsest and m == 0, consts, stop=stop)
         # All three planes are smoothed against the same pre-pass
         # confidence, then averaged (MatchGPULib.cpp:2262-2412).
-        return fused_smooth_average(state, n_smooth)
+        return ops.smooth(state, n_smooth, stop=stop, out=out)
 
     return body
 
@@ -123,7 +168,8 @@ def uses_level_resident(height: int, width: int,
 
 def match_level(left: torch.Tensor, right: torch.Tensor, disp: torch.Tensor,
                 level_index: int, cfg: MatcherConfig, is_coarsest: bool,
-                resident_max_pixels: Optional[int] = None) -> torch.Tensor:
+                resident_max_pixels: Optional[int] = None, *,
+                exit_loop: Optional[str] = None) -> torch.Tensor:
     """Refine the (3, H, W) disparity triplet of one pyramid level.
 
     left, right: (3, H, W) images of the level.  level_index sets the
@@ -140,16 +186,25 @@ def match_level(left: torch.Tensor, right: torch.Tensor, disp: torch.Tensor,
     one iteration stops after the first iteration whose
     max(weighted_difference) over both axes falls below the threshold,
     and runs at least one (JAX ``_match_level_scan``, match.py:368-421).
-    Each of its iterations reads that change on the host: one device sync
-    an iteration (``host_syncs``).  A level on the level-resident route
-    runs its full schedule: the JAX package's level kernel has no exit
-    and its gate never reads the threshold (match.py:50-72, :217-258), so
-    the level kernel here has none either.  At 16 MP that is levels 6-13
-    of mode 1 and all 14 levels of mode 2; only levels 0-5 of mode 1 (42
-    iterations at most) exit early.  torch.sum adds in another order than
-    XLA, so a change within about 1e-6 of the threshold may stop a level
-    one iteration sooner or later than the JAX package does."""
+    On the card the device decides it with no host read
+    (``device_exit_loop``); on the CPU each iteration reads its change
+    on the host (``host_exit_loop``, ``host_syncs``).  ``exit_loop``
+    ("device" or "host") takes either loop on any device, so that tests
+    and chip_smoke.py can hold one against the other.
+    ``iterations_run`` counts the iterations either ran.  A level on the
+    level-resident route runs its full schedule: the JAX package's level
+    kernel has no exit and its gate never reads the threshold
+    (match.py:50-72, :217-258), so the level kernel here has none
+    either.  At 16 MP that is levels 6-13 of mode 1 and all 14 levels of
+    mode 2; only levels 0-5 of mode 1 (42 iterations at most) exit
+    early.  torch.sum, and the card's float64
+    sums, add in another order than XLA, so a change within about 1e-6
+    of the threshold may stop a level one iteration sooner or later than
+    the JAX package does, or than the other loop."""
     check_supported(cfg)
+    if exit_loop not in (None, "device", "host"):
+        raise ValueError(f"exit_loop must be 'device' or 'host', got "
+                         f"{exit_loop!r}")
     mi = cfg.iters_for_level(level_index)
     n_smooth = cfg.smooth_passes_for_level(level_index)
     thresholds = cfg.threshold_schedule(mi)
@@ -160,21 +215,70 @@ def match_level(left: torch.Tensor, right: torch.Tensor, disp: torch.Tensor,
                                     is_coarsest, cfg.conf_consts, cfg.interp)
     body = _make_level_body(left, right, _level_blurred_l2(left), cfg,
                             is_coarsest, n_smooth)
-    state = disp
     if cfg.early_exit_delta is None or mi <= 1:
+        state = disp
         for m, threshold in enumerate(thresholds):
             state = body(state, m, threshold)
         return state
     # the JAX loop compares float32 values: the threshold rounded so
     thr = float(np.float32(cfg.early_exit_delta))
+    if exit_loop is None:
+        exit_loop = "host" if left.device.type == "cpu" else "device"
+    if exit_loop == "host":
+        return host_exit_loop(body, disp, thresholds, thr)
+    state, buf = device_exit_loop(body, convergence.convergence_step, disp,
+                                  thresholds, thr)
+    last = _DEVICE_LAST.get(left.device)
+    if last is None:
+        last = _DEVICE_LAST[left.device] = torch.zeros(
+            (), dtype=torch.int32, device=left.device)
+    last.add_(convergence.last_iteration(buf)[0])
+    _ITERATIONS[0] += 1
+    return state
+
+
+def host_exit_loop(body: LevelBody, disp: torch.Tensor,
+                   thresholds: Sequence[float], thr: float) -> torch.Tensor:
+    """Early exit with the change read on the host after each iteration
+    (``host_syncs`` counts the reads): match_level's loop on the CPU, and
+    the plain version of ``device_exit_loop`` on any device."""
+    state = disp
     for m, threshold in enumerate(thresholds):
         new = body(state, m, threshold)
         delta = _changes(new, state).max()
         state = new
         _HOST_SYNCS[0] += 1
+        _ITERATIONS[0] += 1
         if not delta.item() >= thr:   # NaN stops too, as in JAX
             break
     return state
+
+
+def device_exit_loop(body: LevelBody, converge: Callable[..., torch.Tensor],
+                     disp: torch.Tensor, thresholds: Sequence[float],
+                     thr: Optional[float]
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A level's whole schedule enqueued with no host read, the JAX
+    ``lax.while_loop`` (match.py:392-414) on the card: iteration m is
+    ``body`` guarded by the level's flag, its smoothing written into one
+    of two states the loop owns (m % 2), then ``converge`` (the
+    convergence test, which sets the flag after the last iteration that
+    runs; ``thr`` None: the trace's, which never sets it).  The iterations
+    after the flag is set do nothing, so the state of iteration ``last``
+    is the one the loop last wrote, and one device-side select returns
+    it.  Returns (triplet, the level's convergence.level_buffer)."""
+    mi = len(thresholds)
+    buf = convergence.level_buffer(mi, disp.device)
+    stop = convergence.stop_flag(buf)
+    states = torch.empty((2,) + tuple(disp.shape), dtype=disp.dtype,
+                         device=disp.device)
+    old = disp
+    for m, threshold in enumerate(thresholds):
+        new = body(old, m, threshold, stop=stop, out=states[m % 2])
+        converge(new, old, m, buf, thr)
+        old = new
+    parity = convergence.last_iteration(buf).remainder(2)
+    return states.index_select(0, parity)[0], buf
 
 
 def _changes(new: torch.Tensor, old: torch.Tensor) -> torch.Tensor:
@@ -191,21 +295,19 @@ def level_convergence_trace(left: torch.Tensor, right: torch.Tensor,
     """One level's full iteration schedule on the per-iteration route,
     whatever the level's size or ``cfg.early_exit_delta``: ``(triplet,
     deltas)``, deltas a (mi, 2) float32 tensor of each iteration's
-    weighted_difference of (disp_h, disp_v), stacked on the device with
-    no host read in the loop (JAX match.py:424-453).  The triplet equals
-    match_level's per-iteration route without early exit bit for bit."""
+    weighted_difference of (disp_h, disp_v) with no host read in the loop
+    (JAX match.py:424-453): ``device_exit_loop`` with the trace's
+    convergence test, the convergence kernel's on the card.  The triplet
+    equals match_level's per-iteration route without early exit bit for
+    bit."""
     check_supported(cfg)
     mi = cfg.iters_for_level(level_index)
     body = _make_level_body(left, right, _level_blurred_l2(left), cfg,
                             is_coarsest, cfg.smooth_passes_for_level(
                                 level_index))
-    state = disp
-    deltas = []
-    for m, threshold in enumerate(cfg.threshold_schedule(mi)):
-        new = body(state, m, threshold)
-        deltas.append(_changes(new, state))
-        state = new
-    return state, torch.stack(deltas)
+    state, buf = device_exit_loop(body, convergence.convergence_step, disp,
+                                  cfg.threshold_schedule(mi), None)
+    return state, convergence.deltas(buf).clone()
 
 
 class PyramidMatchResult(NamedTuple):

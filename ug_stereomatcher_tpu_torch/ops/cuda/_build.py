@@ -17,7 +17,9 @@ The nearest and bilinear forms of warp and resample count under their own
 names (``warp`` / ``warp_bilinear``, ``resample`` / ``resample_bilinear``),
 and so do the row-sharded forms of warp, direction and smooth
 (``warp_row_halo``, ``warp_bilinear_row_halo``, ``direction_row_halo``,
-``smooth_row_halo``).
+``smooth_row_halo``).  The early-exit convergence test counts under
+``convergence``; a guarded warp, direction or smooth (``stop`` given)
+counts under its usual name, whether or not the flag lets it run.
 """
 
 from __future__ import annotations
@@ -54,11 +56,15 @@ SIGNATURES = {
                               _P],
     "ugsm_resample_bilinear": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                _F, _I, _I, _I, _I, _P],
-    "ugsm_warp": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # the _P before the stream: the early-exit flag (null: unguarded)
+    "ugsm_warp": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P],
     "ugsm_direction_update": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
-                              _I, _F, _F, _F, _F, _F, _F, _F, _F, _P],
+                              _I, _F, _F, _F, _F, _F, _F, _F, _F, _P, _P],
     "ugsm_smooth_average": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
-                            _P],
+                            _P, _P],
+    # (new, old, H * W, threshold, may_exit, m, flags, partials, deltas,
+    #  max_blocks)
+    "ugsm_convergence": [_P, _P, _I, _F, _I, _I, _P, _P, _P, _I, _P],
     "ugsm_level_resident": [_P, _P, _P, _P, _P, _P, _PF, _I, _I, _I, _I,
                             _I, _I, _F, _F, _F, _F, _F, _F, _F, _F, _F, _I,
                             _P],
@@ -218,3 +224,47 @@ def check_planes(name: str, *tensors: torch.Tensor) -> torch.device:
 def ptr(t: torch.Tensor) -> int:
     """The device address of ``t`` (a c_void_p argument takes the int)."""
     return t.data_ptr()
+
+
+def check_out(name: str, out: Optional[torch.Tensor], shape,
+              like: torch.Tensor) -> torch.Tensor:
+    """``out`` checked to be a contiguous float32 tensor of ``shape`` on
+    ``like``'s device, or a new empty one where it is None."""
+    if out is None:
+        return torch.empty(shape, dtype=like.dtype, device=like.device)
+    if (tuple(out.shape) != tuple(shape) or out.dtype != torch.float32
+            or out.device != like.device or not out.is_contiguous()):
+        raise ValueError(f"{name}: out must be a contiguous float32 "
+                         f"{tuple(shape)} tensor on {like.device}, got "
+                         f"{out.dtype} {tuple(out.shape)} on {out.device}")
+    return out
+
+
+def stop_ptr(name: str, stop: Optional[torch.Tensor],
+             dev: torch.device) -> Optional[int]:
+    """The device address of an early-exit flag (one int32 on ``dev``;
+    a kernel given one returns before any load or store while it is not
+    0), or None for an unguarded launch."""
+    if stop is None:
+        return None
+    if stop.numel() != 1 or stop.dtype != torch.int32 or stop.device != dev:
+        raise ValueError(f"{name}: stop must be one int32 on {dev}, got "
+                         f"{stop.dtype} {tuple(stop.shape)} on {stop.device}")
+    return stop.data_ptr()
+
+
+def guarded_plain(stop: Optional[torch.Tensor], out: Optional[torch.Tensor],
+                  shape, like: torch.Tensor,
+                  compute: Callable[[], torch.Tensor]) -> torch.Tensor:
+    """The guard of a plain version: with the flag ``stop`` set nothing is
+    computed or written (the result is ``out`` as it was, or a new empty
+    tensor); else ``compute()``, written into ``out`` where one is given.
+    The flag is read on the host: free on the CPU, a sync on the card."""
+    if stop is not None:
+        stop_ptr("plain", stop, like.device)   # the kernel's checks
+        if int(stop.reshape(())) != 0:
+            return check_out("plain", out, shape, like)
+    res = compute()
+    if out is None:
+        return res
+    return check_out("plain", out, shape, like).copy_(res)

@@ -21,6 +21,10 @@ kernel, direction.py:221-246) takes one shard's rows of left and warped
 with HALO real rows above and below, and resolves every boundary at the
 image's global rows 0 and ``global_h - 1``: its output is exactly the
 shard's rows of the unsharded step.
+
+Early exit's guarded form (``stop`` given, match.match_level on the
+card): every block returns before its first load while the level's flag
+is set (ops/cuda/convergence.py), so ``out`` keeps what it held.
 """
 
 from __future__ import annotations
@@ -34,7 +38,14 @@ from ug_stereomatcher_tpu_torch.ops.conv import (
     blur_gaussian_clamp,
     blur_gaussian_zero,
 )
-from ug_stereomatcher_tpu_torch.ops.cuda._build import check_planes, launch, ptr
+from ug_stereomatcher_tpu_torch.ops.cuda._build import (
+    check_out,
+    check_planes,
+    guarded_plain,
+    launch,
+    ptr,
+    stop_ptr,
+)
 from ug_stereomatcher_tpu_torch.ops.pointwise import (
     blend_confidence,
     correlation_ratio,
@@ -89,9 +100,19 @@ def fused_direction_update_plain(left: torch.Tensor, warped: torch.Tensor,
                                  threshold: float, replace_conf: bool,
                                  consts: Sequence[float] = DEFAULT_CONSTS,
                                  row0: Optional[int] = None,
-                                 global_h: Optional[int] = None
+                                 global_h: Optional[int] = None, *,
+                                 stop: Optional[torch.Tensor] = None,
+                                 out: Optional[torch.Tensor] = None
                                  ) -> torch.Tensor:
-    """Plain PyTorch version of one correlate->parabola->update step."""
+    """Plain PyTorch version of one correlate->parabola->update step, with
+    the guard of ``_build.guarded_plain``."""
+    return guarded_plain(stop, out, disp.shape, disp, lambda: _update_plain(
+        left, warped, blurred_l2, disp, threshold, replace_conf, consts, row0,
+        global_h))
+
+
+def _update_plain(left, warped, blurred_l2, disp, threshold, replace_conf,
+                  consts, row0, global_h) -> torch.Tensor:
     no_peak, aff_scale, aff_bias, w_new, w_old = consts
     dir_l, dir_r, dir_u, dir_d, dir_c = direction_maps(
         left, warped, blurred_l2, row0 or 0, global_h)
@@ -112,7 +133,10 @@ def fused_direction_update(left: torch.Tensor, warped: torch.Tensor,
                            threshold: float, replace_conf: bool,
                            consts: Sequence[float] = DEFAULT_CONSTS,
                            row0: Optional[int] = None,
-                           global_h: Optional[int] = None) -> torch.Tensor:
+                           global_h: Optional[int] = None, *,
+                           stop: Optional[torch.Tensor] = None,
+                           out: Optional[torch.Tensor] = None
+                           ) -> torch.Tensor:
     """One correlate->parabola->update step on (3, H, W) float32 planes.
 
     ``disp`` is the state [disp_h, disp_v, conf]; ``replace_conf`` takes
@@ -124,8 +148,11 @@ def fused_direction_update(left: torch.Tensor, warped: torch.Tensor,
     disp and the result are the (3, Hl, W) rows [row0, row0 + Hl) of a
     ``global_h``-row image, and left and warped are (3, Hl + 2 HALO, W),
     the rows [row0 - HALO, row0 + Hl + HALO) (rows outside the image may
-    hold anything).  A CUDA tensor runs the kernel; a CPU tensor runs the
-    plain version."""
+    hold anything).
+
+    ``out``: the result's buffer (default a new one).  ``stop``: early
+    exit's flag (one int32; the kernel does nothing while it is set).  A
+    CUDA tensor runs the kernel; a CPU tensor runs the plain version."""
     shape = disp.shape
     if len(shape) != 3 or shape[0] != 3:
         raise ValueError(f"expected (3, H, W) state, got {tuple(shape)}")
@@ -146,13 +173,15 @@ def fused_direction_update(left: torch.Tensor, warped: torch.Tensor,
     if dev.type == "cpu":
         return fused_direction_update_plain(left, warped, blurred_l2, disp,
                                             threshold, replace_conf, consts,
-                                            row0, global_h)
-    out = torch.empty_like(disp)
+                                            row0, global_h, stop=stop,
+                                            out=out)
+    out = check_out("fused_direction_update", out, shape, disp)
     k = gaussian_kernel()
     launch("ugsm_direction_update",
            "direction" if row0 is None else "direction_row_halo", ptr(left),
            ptr(warped), ptr(blurred_l2), ptr(disp), ptr(out),
            Hl if row0 is None else global_h, W, Hl, row0 or 0, halo,
            float(threshold), int(bool(replace_conf)), float(k[0]),
-           float(k[1]), float(k[2]), *(float(c) for c in consts))
+           float(k[1]), float(k[2]), *(float(c) for c in consts),
+           stop_ptr("fused_direction_update", stop, dev))
     return out

@@ -20,6 +20,12 @@ kernel, smooth.py:48-110 and :172-202) smooths one shard's rows with
 ``smooth_halo_rows(n)`` real rows of halo on each side: row 0 and the
 clamps resolve at the image's global edges, and each pass spoils one more
 row at each cut edge of the band, never the shard's own rows.
+
+Early exit's guarded form (``stop`` given, match.match_level on the
+card): every block of every launch returns before its first load while
+the level's flag is set (ops/cuda/convergence.py), so ``out``, which
+match_level gives (one of the two states it owns per level), keeps the
+last state that ran.
 """
 
 from __future__ import annotations
@@ -31,10 +37,13 @@ import torch
 from ug_stereomatcher_tpu_torch.config import average_kernel
 from ug_stereomatcher_tpu_torch.ops.conv import blur_average_clamp
 from ug_stereomatcher_tpu_torch.ops.cuda._build import (
+    check_out,
     check_planes,
+    guarded_plain,
     launch,
     library,
     ptr,
+    stop_ptr,
 )
 from ug_stereomatcher_tpu_torch.ops.resample import band_rows
 from ug_stereomatcher_tpu_torch.ops.smooth import weighted_smooth
@@ -54,11 +63,22 @@ def max_chunk() -> int:
 
 def fused_smooth_average_plain(state: torch.Tensor, n_passes: int,
                                row0: Optional[int] = None,
-                               global_h: Optional[int] = None
+                               global_h: Optional[int] = None, *,
+                               stop: Optional[torch.Tensor] = None,
+                               out: Optional[torch.Tensor] = None
                                ) -> torch.Tensor:
     """Plain PyTorch version: n weighted_smooth passes + the average.  In
     the row-sharded form the band's rows outside the image are re-clamped
-    to the image's edge rows before every pass and before the average."""
+    to the image's edge rows before every pass and before the average.
+    The guard is ``_build.guarded_plain``'s."""
+    rows = state.shape[-2] - (0 if row0 is None
+                              else 2 * smooth_halo_rows(n_passes))
+    return guarded_plain(stop, out, (3, rows, state.shape[-1]), state,
+                         lambda: _smooth_plain(state, n_passes, row0,
+                                               global_h))
+
+
+def _smooth_plain(state, n_passes, row0, global_h) -> torch.Tensor:
     if row0 is None:
         for _ in range(n_passes):
             state = weighted_smooth(state, state[2])
@@ -75,7 +95,10 @@ def fused_smooth_average_plain(state: torch.Tensor, n_passes: int,
 
 def fused_smooth_average(state: torch.Tensor, n_passes: int,
                          row0: Optional[int] = None,
-                         global_h: Optional[int] = None) -> torch.Tensor:
+                         global_h: Optional[int] = None, *,
+                         stop: Optional[torch.Tensor] = None,
+                         out: Optional[torch.Tensor] = None
+                         ) -> torch.Tensor:
     """``n_passes`` smoothing passes and the 3-tap average over a (3, H, W)
     float32 [disp_h, disp_v, conf] state.
 
@@ -83,9 +106,13 @@ def fused_smooth_average(state: torch.Tensor, n_passes: int,
     (3, Hl + 2 h, W) with h = smooth_halo_rows(n_passes), the rows [row0 -
     h, row0 + Hl + h) of a ``global_h``-row image (rows outside the image
     may hold anything), and the result is the (3, Hl, W) rows [row0, row0
-    + Hl).  A CUDA tensor runs the kernel (``max(1, ceil(n_passes /
-    max_chunk()))`` launches, counted as one call); a CPU tensor runs the
-    plain version."""
+    + Hl).
+
+    ``out``: the (3, Hl, W) result's buffer (default a new one; it must
+    not overlap ``state``).  ``stop``: early exit's flag (one int32; the
+    kernel does nothing while it is set).  A CUDA tensor runs the kernel
+    (``max(1, ceil(n_passes / max_chunk()))`` launches, counted as one
+    call); a CPU tensor runs the plain version."""
     if state.ndim != 3 or state.shape[0] != 3:
         raise ValueError(f"expected (3, H, W) state, got {tuple(state.shape)}")
     if n_passes < 0:
@@ -98,9 +125,11 @@ def fused_smooth_average(state: torch.Tensor, n_passes: int,
         raise ValueError(f"a band of {rows} rows with {halo} halo rows on "
                          f"each side does not lie in an image of "
                          f"global_h={global_h} rows from row {row0}")
-    if check_planes("fused_smooth_average", state).type == "cpu":
-        return fused_smooth_average_plain(state, n_passes, row0, global_h)
-    out = torch.empty((3, Hl, W), dtype=state.dtype, device=state.device)
+    dev = check_planes("fused_smooth_average", state)
+    if dev.type == "cpu":
+        return fused_smooth_average_plain(state, n_passes, row0, global_h,
+                                          stop=stop, out=out)
+    out = check_out("fused_smooth_average", out, (3, Hl, W), state)
     # scratch states between launches: none for n <= max_chunk()
     chunks = -(-n_passes // max_chunk())
     tmp = [torch.empty_like(state) for _ in range(min(2, max(0, chunks - 1)))]
@@ -110,5 +139,5 @@ def fused_smooth_average(state: torch.Tensor, n_passes: int,
            "smooth" if row0 is None else "smooth_row_halo", ptr(state),
            ptr(out), *tmp_ptrs,
            rows if row0 is None else global_h, W, Hl, row0 or 0, halo,
-           int(n_passes), tap)
+           int(n_passes), tap, stop_ptr("fused_smooth_average", stop, dev))
     return out

@@ -22,6 +22,11 @@ level from the whole right image, which the caller gathers once per
 level (the route of the JAX ``_sharded_warp``, spatial.py:173-193): the
 same gather with a row offset, exact for every field, so it needs none of
 the TPU form's halo windows, tiers or overflow guard.
+
+Early exit's guarded form (``stop`` given, match.match_level on the
+card): every block returns before its first load or store while the
+level's flag is set (ops/cuda/convergence.py), so ``out`` keeps what it
+held.
 """
 
 from __future__ import annotations
@@ -31,7 +36,14 @@ from typing import Optional
 import torch
 
 from ug_stereomatcher_tpu_torch.config import INTERP_METHODS, unsupported_interp
-from ug_stereomatcher_tpu_torch.ops.cuda._build import check_planes, launch, ptr
+from ug_stereomatcher_tpu_torch.ops.cuda._build import (
+    check_out,
+    check_planes,
+    guarded_plain,
+    launch,
+    ptr,
+    stop_ptr,
+)
 from ug_stereomatcher_tpu_torch.ops.resample import warp_by_disparity
 
 COUNTERS = {"nearest": "warp", "bilinear": "warp_bilinear"}
@@ -41,10 +53,14 @@ MAX_KERNEL_ELEMENTS = 2 ** 31  # the kernel's offsets are 32-bit
 
 
 def warp_plain(img: torch.Tensor, disp_x: torch.Tensor, disp_y: torch.Tensor,
-               method: str = "nearest",
-               row0: Optional[int] = None) -> torch.Tensor:
-    """Plain PyTorch version: ops.resample.warp_by_disparity."""
-    return warp_by_disparity(img, disp_x, disp_y, method, row0 or 0)
+               method: str = "nearest", row0: Optional[int] = None, *,
+               stop: Optional[torch.Tensor] = None,
+               out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Plain PyTorch version: ops.resample.warp_by_disparity, with the
+    guard of ``_build.guarded_plain``."""
+    return guarded_plain(
+        stop, out, (img.shape[0],) + tuple(disp_x.shape), img,
+        lambda: warp_by_disparity(img, disp_x, disp_y, method, row0 or 0))
 
 
 def warp_nearest_plain(img: torch.Tensor, disp_x: torch.Tensor,
@@ -54,7 +70,9 @@ def warp_nearest_plain(img: torch.Tensor, disp_x: torch.Tensor,
 
 
 def warp(img: torch.Tensor, disp_x: torch.Tensor, disp_y: torch.Tensor,
-         method: str = "nearest", row0: Optional[int] = None) -> torch.Tensor:
+         method: str = "nearest", row0: Optional[int] = None, *,
+         stop: Optional[torch.Tensor] = None,
+         out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """dst[c, y, x] = img[c] sampled at (x + 0.5 + disp_x, y + 0.5 +
     disp_y) in texel coordinates with clamp addressing: point sampling
     (``"nearest"``) or four float32-weighted taps (``"bilinear"``).  img
@@ -63,7 +81,11 @@ def warp(img: torch.Tensor, disp_x: torch.Tensor, disp_y: torch.Tensor,
     Row-sharded form: with ``row0`` given, disp_x and disp_y are (Hl, W),
     the rows [row0, row0 + Hl) of the (H, W) grid, img is still the whole
     (C, H, W) image, and the result is those (C, Hl, W) rows of the warp.
-    A CUDA tensor runs the kernel; a CPU tensor runs the plain version."""
+
+    ``out``: the (C, Hl, W) result's buffer (default a new one).
+    ``stop``: early exit's flag (one int32; the kernel does nothing while
+    it is set).  A CUDA tensor runs the kernel; a CPU tensor runs the
+    plain version."""
     if method not in INTERP_METHODS:
         raise unsupported_interp(method)
     if img.ndim != 3:
@@ -77,15 +99,18 @@ def warp(img: torch.Tensor, disp_x: torch.Tensor, disp_y: torch.Tensor,
         raise ValueError(f"disparity planes must be (rows, {W}) inside the "
                          f"{H}-row image from row {start}, got "
                          f"{tuple(disp_x.shape)} and {tuple(disp_y.shape)}")
-    if check_planes("warp", img, disp_x, disp_y).type == "cpu":
-        return warp_plain(img, disp_x, disp_y, method, row0)
+    dev = check_planes("warp", img, disp_x, disp_y)
+    if dev.type == "cpu":
+        return warp_plain(img, disp_x, disp_y, method, row0, stop=stop,
+                          out=out)
     if img.numel() >= MAX_KERNEL_ELEMENTS:
         raise ValueError(f"warp: the kernel takes images of fewer than "
                          f"2^31 floats, got {tuple(img.shape)}")
-    out = torch.empty((C, Hl, W), dtype=img.dtype, device=img.device)
+    out = check_out("warp", out, (C, Hl, W), img)
     counters = COUNTERS if row0 is None else ROW_HALO_COUNTERS
     launch("ugsm_warp", counters[method], ptr(img), ptr(disp_x), ptr(disp_y),
-           ptr(out), C, H, W, Hl, start, int(method == "bilinear"))
+           ptr(out), C, H, W, Hl, start, int(method == "bilinear"),
+           stop_ptr("warp", stop, dev))
     return out
 
 
