@@ -31,11 +31,12 @@ Phases (any failure exits non-zero before the last line is printed):
    and a float64 sum (2e-6), with its flag;
    each kernel's least possible time on the card (bound) and, where one
    PyTorch call computes the same function, that call's time; every
-   case but the level kernel's also prints its device time alone
-   (device_ms, and library_device_ms for the PyTorch call: CUDA events
-   around the replay of a CUDA graph of 20 calls, over 20), beside ms,
-   the call as a caller sees it (3 back-to-back calls: where the host's
-   work is the longer, ms is the host's);
+   case also prints its device time alone (device_ms, and
+   library_device_ms for the PyTorch call: CUDA events around the
+   replay of a CUDA graph of 20 calls, over 20; the level kernel's
+   cooperative launch included), beside ms, the call as a caller sees
+   it (3 back-to-back calls: where the host's work is the longer, ms is
+   the host's);
 3. slices: StereoEngine.match on the 1/f octave scene with a known 3 px
    shift at 3264 x 4928, (a) nearest with the level-resident gate, (b)
    nearest with every level per iteration, (c) bilinear; then
@@ -73,7 +74,16 @@ Phases (any failure exits non-zero before the last line is printed):
    least-squares gold on 4096 seeded pixels, q99 <= 1e-3), the resized
    clouds at 0.2 (bilinear through the resample kernel, which is held
    against its plain version on that range map, and cubic) and the
-   foveated cloud of (f), each timed with its device part; then phase
+   foveated cloud of (f), each timed with its device part; phase 3h,
+   the compile-once cache (graphs_phase): every entry point the engine
+   captures as a CUDA graph (match nearest and bilinear, with and
+   without early exit; match_foveated nearest and bilinear;
+   match_hierarchical; match_batch of 8 pairs at 815 x 1231, mode 1 and
+   foveated) bit-equal to the eager module path on the capture and on a
+   replay with a second scene, the first result unchanged, launch counts
+   and early-exit iterations equal and no host read, with the warm
+   latency and busy share of graph and eager in turns, the capture
+   time, the peak memory and the memory the graph holds; then phase
    3e, the host layers, writing only .npy, .txt, .json, .xml and .pcd
    files into a temporary directory: BatchRunner over a 3-pair .npy
    manifest with the verged rig as two XML files and clouds, with and
@@ -403,14 +413,17 @@ def interpolate_resample(src, scale: float, out_hw, method: str):
 
 def compare(report: dict, name: str, tag: str, kernel, plain, args,
             rule: str = "exact", work=None, library=None,
-            timed: bool = True, graph: bool = True) -> None:
+            timed: bool = True, graph: bool = True,
+            graph_library: bool = True) -> None:
     """Run ``kernel`` and ``plain`` on the same inputs, hold them to
     ``rule`` ("exact", "close" = the repo's quantile rule, "allclose" =
     rtol=atol=1e-4), time both, and record the case under ``name``.
     ``ms`` is the call (CUDA events around back-to-back calls: the host's
     work shows where it is longer than the kernel's); with ``graph``,
-    ``device_ms`` (and ``library_device_ms``) is the same call replayed
-    from a CUDA graph, the kernel's own time."""
+    ``device_ms`` (and, with ``graph_library``, ``library_device_ms``)
+    is the same call replayed from a CUDA graph, the kernel's own time
+    (a library call that is itself a graph's replay is not captured
+    again)."""
     out = kernel(*args)
     ref = plain(*args)
     torch.cuda.synchronize()
@@ -444,7 +457,7 @@ def compare(report: dict, name: str, tag: str, kernel, plain, args,
         case["library_ms"] = cuda_ms(library) if library else None
         if graph:
             case["device_ms"] = graph_ms(lambda: kernel(*args))
-            if library:
+            if library and graph_library:
                 case["library_device_ms"] = graph_ms(library)
     del out, ref, d
     entry["cases"].append(case)
@@ -785,7 +798,7 @@ def check_level(dev, cfg, report: dict) -> None:
                          method),
                         rule="close" if method == "nearest" else "allclose",
                         work=(12 * h * w * 4.0, mi * per_px * h * w),
-                        library=library, timed=timed, graph=False)
+                        library=library, timed=timed, graph_library=False)
                 if timed:
                     count_barriers(report["level"]["cases"][-1], level,
                                    (left, right, state, thr, n, rep,
@@ -826,7 +839,7 @@ def check_fovea_kernels(dev, cfg, report: dict) -> None:
                     level.level_resident_match_plain, args,
                     rule="close" if method == "nearest" else "allclose",
                     work=(12 * fh * fw * 4.0, mi * per_px * fh * fw),
-                    library=library, graph=False)
+                    library=library, graph_library=False)
             count_barriers(report["level_fovea"]["cases"][-1], level, args,
                            mi)
     del left, right, state
@@ -1679,6 +1692,214 @@ def extras(dev, cfg, bil, left, right, left_np, near_ref, slices: dict,
     torch.cuda.empty_cache()
 
 
+GRAPH_CASES = (
+    # (label, entry point, config fields)
+    ("mode1_nearest", "match", {}),
+    ("mode1_bilinear", "match", {"interp": "bilinear"}),
+    ("mode1_nearest_ee", "match", {"early_exit_delta": 0.1}),
+    ("mode1_bilinear_ee", "match", {"interp": "bilinear",
+                                    "early_exit_delta": 0.02}),
+    ("mode2_nearest", "match_foveated", {}),
+    ("mode2_bilinear", "match_foveated", {"interp": "bilinear"}),
+    ("hierarchical", "match_hierarchical", {}),
+    ("batch", "match_batch", {}),
+    ("batch_foveated", "match_batch_foveated", {}),
+)
+
+
+def graph_case(dev, cfg, entry: str):
+    """(eager, engine): the eager module path of ``entry`` and the
+    engine's entry point, each a call on (left, right) as a caller passes
+    them (uint8 HWC on the card) that returns its tensors, synchronised."""
+    from ug_stereomatcher_tpu_torch import StereoEngine
+    from ug_stereomatcher_tpu_torch import match as match_mod
+    from ug_stereomatcher_tpu_torch import pyramid as pyr
+    from ug_stereomatcher_tpu_torch.parallel.batch import make_batch_matcher
+
+    eng = StereoEngine(cfg, device=dev)
+    fov = entry.endswith("foveated")
+    k = cfg.fovea_level
+
+    def chw(x):
+        return x.movedim(-1, -3).float().contiguous()
+
+    def eager(left, right):
+        if entry.startswith("match_batch"):
+            out = make_batch_matcher(cfg, None, dev, fov)(chw(left),
+                                                          chw(right))
+        else:
+            lt, rt = chw(left), chw(right)
+            h, w = lt.shape[-2:]
+            if entry == "match":
+                lp, rp = pyr.build_pyramid_pair(lt, rt, cfg,
+                                                cfg.num_levels(h, w))
+                out = match_mod.match_pyramid(lp, rp, cfg, (h, w)).levels[0]
+            else:
+                levels, lf, rf = match_mod.match_foveated_pair(lt, rt, cfg)
+                if entry == "match_hierarchical":
+                    out = pyr.hierarchical_disparity(levels, cfg, (h, w))
+                else:
+                    out = (torch.cat(levels[:k], dim=-2),
+                           *(torch.cat([x.flatten(0, 1) for x in f[:k]])
+                             for f in (lf, rf)))
+        torch.cuda.synchronize()
+        return out if isinstance(out, tuple) else (out,)
+
+    def engine(left, right):
+        if entry.startswith("match_batch"):
+            res = eng.match_batch(left, right, foveated=fov)
+            planes = ((res.stack_h, res.stack_v, res.stack_c) if fov else
+                      (res.disparity_h, res.disparity_v, res.confidence))
+            out = (torch.stack(planes, dim=1),)
+        elif entry == "match_foveated":
+            res = eng.match_foveated(left, right)
+            out = (torch.stack([res.stack_h, res.stack_v, res.stack_c]),
+                   res.stack_left, res.stack_right)
+        else:
+            out = (getattr(eng, entry)(left, right).triplet,)
+        torch.cuda.synchronize()
+        return out
+    return eng, eager, engine
+
+
+def counted_call(call, *inputs):
+    """call(*inputs) with every count set to 0 just before it: (result,
+    launches, early-exit iterations, host reads, graph replays)."""
+    from ug_stereomatcher_tpu_torch import match as match_mod
+    from ug_stereomatcher_tpu_torch.ops.cuda import _build
+
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    match_mod.reset_host_syncs()
+    out = call(*inputs)
+    return (out, _build.launch_counts(), match_mod.iterations_run(),
+            match_mod.host_syncs(), _build.graph_replays())
+
+
+def same_bits(label: str, what: str, out, ref) -> None:
+    for i, (a, b) in enumerate(zip(out, ref)):
+        if a.shape != b.shape or not torch.equal(a, b):
+            err = ((a - b).abs().max().item() if a.shape == b.shape
+                   else f"shape {tuple(a.shape)} vs {tuple(b.shape)}")
+            fail(f"graphs {label}: {what}: output {i} differs from the "
+                 f"eager path (max |d| {err})")
+
+
+def warm_ms(call, *inputs, n: int = 5):
+    """Median warm latency in ms (host clock around a synchronised call)
+    and the runs in ms."""
+    times = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        call(*inputs)
+        times.append(time.perf_counter() - t0)
+    med = statistics.median(times)
+    return med * 1e3, [round(t * 1e3, 3) for t in times]
+
+
+def graphs_phase(dev, cfg, left, right, report: dict) -> None:
+    """Phase 3h, the compile-once cache (graphs.py): each captured entry
+    point at 16 MP (mode 1 nearest and bilinear, each with and without
+    early exit at 0.1 / 0.02 px; mode 2 nearest and bilinear; the
+    hierarchical map) and the 8-pair batch at 815 x 1231 (mode 1 and
+    foveated) against the eager module path on the same inputs, bit for
+    bit, with the same launch counts, early-exit iterations and no host
+    read, on the first call (the capture) and on a replay with a second
+    scene (seed + 1); the first call's result unchanged by the second.
+    Then the warm latency (median of 5) and busy share of the graph and
+    of the eager path in turns (eager, graph, graph, eager), the capture
+    time, the peak memory of the first call against the eager call's and
+    the memory the engine's graph holds."""
+    import dataclasses
+
+    from ug_stereomatcher_tpu_torch import scene
+
+    t_phase = time.perf_counter()
+    other = [torch.from_numpy(x).to(dev)
+             for x in scene.make_pair(H, W, seed=SEED + 1)]
+    pairs = {s: [scene.make_pair(TPUT_H, TPUT_W, seed=s + i)
+                 for i in range(TPUT_BATCH)] for s in (SEED, SEED + 100)}
+    batches = {s: [torch.from_numpy(np.stack([p[j] for p in ps])).to(dev)
+                   for j in (0, 1)] for s, ps in pairs.items()}
+    out = report["graphs"] = {}
+    for label, entry, fields in GRAPH_CASES:
+        c = dataclasses.replace(cfg, **fields)
+        if entry.startswith("match_batch"):
+            first, second = batches[SEED], batches[SEED + 100]
+        else:
+            first, second = (left, right), other
+        torch.cuda.empty_cache()
+        reserved0 = torch.cuda.memory_reserved(dev)
+        eng, eager, engine = graph_case(dev, c, entry)
+        torch.cuda.reset_peak_memory_stats(dev)
+        ref1, want1, it1, _, _ = counted_call(eager, *first)
+        eager_peak = torch.cuda.max_memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        out1, got1, git1, syncs1, rep1 = counted_call(engine, *first)
+        first_s = time.perf_counter() - t0
+        graph_peak = torch.cuda.max_memory_allocated(dev)
+        (capture_s,) = (g.capture_s for g in eng.graphs.values())
+        same_bits(label, "first call", out1, ref1)
+        if (got1, git1, syncs1, rep1) != (want1, it1, 0, 1):
+            fail(f"graphs {label}: first call counts {got1}, {git1} "
+                 f"iterations, {syncs1} host reads, {rep1} replays; eager "
+                 f"{want1}, {it1} iterations")
+        ref2, want2, it2, _, _ = counted_call(eager, *second)
+        out2, got2, git2, syncs2, rep2 = counted_call(engine, *second)
+        same_bits(label, "second call", out2, ref2)
+        same_bits(label, "first result after the second call", out1, ref1)
+        if (got2, git2, syncs2, rep2) != (want2, it2, 0, 1):
+            fail(f"graphs {label}: replay counts {got2}, {git2} "
+                 f"iterations, {syncs2} host reads, {rep2} replays; eager "
+                 f"{want2}, {it2} iterations")
+        del ref1, ref2, out1, out2
+        # in turns: eager, graph, graph, eager
+        e1, e1s = warm_ms(eager, *first)
+        g1, g1s = warm_ms(engine, *first)
+        g2, g2s = warm_ms(engine, *first)
+        e2, e2s = warm_ms(eager, *first)
+        graph_med = statistics.median(g1s + g2s)
+        eager_med = statistics.median(e1s + e2s)
+        gprof = profile_match(lambda: engine(*first), graph_med / 1e3,
+                              f"graphs {label} graph")
+        eprof = profile_match(lambda: eager(*first), eager_med / 1e3,
+                              f"graphs {label} eager")
+        # the graph's private pool outlives empty_cache while it lives
+        torch.cuda.empty_cache()
+        reserved1 = torch.cuda.memory_reserved(dev)
+        del eng, eager, engine
+        torch.cuda.empty_cache()
+        held = reserved1 - torch.cuda.memory_reserved(dev)
+        row = {"entry": entry, "config": fields,
+               "launches": got1, "iterations_run": git1,
+               "iterations_run_second": git2,
+               "graph_warm_ms": graph_med, "eager_warm_ms": eager_med,
+               "graph_warm_runs_ms": g1s + g2s,
+               "eager_warm_runs_ms": e1s + e2s,
+               "graph_busy_share": gprof["busy_share"],
+               "eager_busy_share": eprof["busy_share"],
+               "graph_device_busy_ms": gprof["device_busy_ms"],
+               "eager_device_busy_ms": eprof["device_busy_ms"],
+               "first_call_s": first_s, "capture_s": capture_s,
+               "peak_mem_bytes": graph_peak, "eager_peak_mem_bytes":
+               eager_peak, "graph_held_bytes": held,
+               "reserved_before_bytes": reserved0}
+        out[label] = row
+        print(f"graphs {label} bit-equal to eager (first call and replay), "
+              f"launches and iterations ({git1}, {git2}) equal, 0 host "
+              f"reads; warm graph={graph_med:.3f} ms (busy "
+              f"{row['graph_busy_share']:.3f}) eager={eager_med:.3f} ms "
+              f"(busy {row['eager_busy_share']:.3f}) runs graph "
+              f"{g1s + g2s} eager {e1s + e2s}; first_call_s={first_s:.4f} "
+              f"capture_s={row['capture_s']:.4f} peak_mem graph="
+              f"{graph_peak} eager={eager_peak} graph_held={held}")
+    del other, batches
+    torch.cuda.empty_cache()
+    print(f"graphs phase {time.perf_counter() - t_phase:.1f} s; "
+          f"nvidia-smi {nvidia_smi()}")
+
+
 # The per-scene accuracy gates of tests/test_eval_cli.py:24-33 (interp ->
 # scene -> (median EPE max, share of pixels above 1 px max)), copied here:
 # the smoke imports nothing of the JAX package or its tests.
@@ -2479,8 +2700,9 @@ def time_resample(dev, resample, case, rand) -> dict:
     """One resample case in both methods: ``_ms`` the call on taps on the
     card (resample_static), ``_device_ms`` the same from a CUDA graph (the
     kernel alone), ``_tex_ms`` resample_tex (the host taps, their upload
-    and the call), ``_bound_ms``, and F.interpolate's call and device ms
-    where one call computes the same function."""
+    and the call), ``_tex_kept_ms`` resample_tex on the taps it keeps on
+    the card (a tree with ScaleMap), ``_bound_ms``, and F.interpolate's
+    call and device ms where one call computes the same function."""
     name, c, (sh, sw), (oh, ow), s, vs, r0, c0 = case
     src = rand(c, sh, sw, hi=255.0)
 
@@ -2509,6 +2731,11 @@ def time_resample(dev, resample, case, rand) -> dict:
         times[f"{key}_ms"] = cuda_ms(call)
         times[f"{key}_device_ms"] = graph_ms(call)
         times[f"{key}_tex_ms"] = cuda_ms(tex)
+        kept = scale_map(s)
+        if kept is not None:
+            times[f"{key}_tex_kept_ms"] = cuda_ms(
+                lambda: resample.resample_tex(src, oh, ow, kept, vs, method,
+                                              r0, c0))
         times[f"{key}_bound_ms"] = bound(
             taps_bytes(src, oh, ow, taps[0], taps[1], bil),
             c * oh * ow * ((12 if bil else 0) + (vs != 1.0)))[0]
@@ -2521,6 +2748,15 @@ def time_resample(dev, resample, case, rand) -> dict:
     return times
 
 
+def scale_map(factor: float):
+    """ops.resample.ScaleMap(factor) of the port being timed, whose taps
+    the resample wrapper keeps on the card; None in a tree without it."""
+    from ug_stereomatcher_tpu_torch.ops import resample as plain
+
+    sm = getattr(plain, "ScaleMap", None)
+    return None if sm is None else sm(factor)
+
+
 def host_costs(dev, resample) -> dict:
     """Host µs a call (this machine's CPU; host clock, the median of 7
     batches of 200 calls, the card not waited on: the kernel takes a few
@@ -2530,7 +2766,8 @@ def host_costs(dev, resample) -> dict:
     output's allocation, the current device, the current stream as a
     torch.cuda.Stream or as its raw handle, the C entry called through
     ctypes (the launch included) and _build.launch around it;
-    resample_static (taps on the card), resample_tex (the whole call) and
+    resample_static (taps on the card), resample_tex (the whole call; and
+    on its kept taps, ``tex_kept``, in a tree with ScaleMap) and
     F.interpolate beside them."""
     from ug_stereomatcher_tpu_torch.ops.cuda import _build
 
@@ -2581,6 +2818,10 @@ def host_costs(dev, resample) -> dict:
                                              "bilinear"),
         "interpolate": interpolate_resample(z, 5.0, (oh, ow), "bilinear"),
     }
+    kept = scale_map(5.0)
+    if kept is not None:   # a tree that keeps a call site's taps on the card
+        steps["tex_kept"] = lambda: resample.resample_tex(z, oh, ow, kept,
+                                                          1.0, "bilinear")
     out = {}
     for step, fn in steps.items():
         fn()
@@ -2908,6 +3149,7 @@ def main() -> int:
     mode2_slices(dev, cfg, bil, left, right, slices)
     extras(dev, cfg, bil, left, right, left_np, near_ref, slices, kernels,
            report)
+    graphs_phase(dev, cfg, left, right, report)
     pipeline_phase(dev, cfg, left, right, left_np, right_np, near_ref, report)
     torch.cuda.empty_cache()
     scaling_phase(dev, cfg, left, right, report)

@@ -30,6 +30,12 @@ results that lie on the card, BatchRunner's dumps equal to match, and
 ``python -m ug_stereomatcher_tpu_torch match --device cuda``.  The
 scaling harness: measure_throughput dp on the card repeated.  The bench:
 BENCH_MODE=mode1 at 816 x 1232 through bench.main(), its gates passed.
+The CUDA graphs (graphs.py): every captured entry point bit-equal to the
+eager module path with the same launch counts, early-exit iterations
+and no host read, on the capture and on replays with other inputs; a
+graph per key and engine, fresh outputs, the level kernel's cooperative
+launch captured alone, and a capture that reads the host, or finds
+taps not yet on the card, raising.
 """
 
 import numpy as np
@@ -1040,3 +1046,233 @@ def test_bench_mode1_on_card(cuda, monkeypatch, capsys):
     assert v["med_abs_dh_err"] < 0.5 and v["mean_abs_dv"] < 0.5
     assert v["frac_dh_err_lt_1"] > 0.9
     assert line["value"] == min(extra["all_runs_s"]) > 0
+
+
+# ------------------------------------------------ compile once, replay
+GH, GW = 192, 256        # 10 levels; fovea_level=3 gives a 96 x 128 fovea
+GRAPH_CASES = {
+    # (entry, config fields, resident_max_pixels)
+    "mode1_nearest": ("match", {}, None),
+    "mode1_nearest_per_iteration": ("match", {}, 0),
+    "mode1_bilinear": ("match", {"interp": "bilinear"}, None),
+    "mode1_nearest_ee": ("match", {"early_exit_delta": 0.1}, 0),
+    "mode1_bilinear_ee": ("match", {"interp": "bilinear",
+                                    "early_exit_delta": 0.02}, 0),
+    "mode2_nearest": ("match_foveated", {}, None),
+    "mode2_bilinear": ("match_foveated", {"interp": "bilinear"}, None),
+    "hierarchical": ("match_hierarchical", {}, None),
+    "batch": ("match_batch", {}, None),
+    "batch_foveated": ("match_batch_foveated", {}, None),
+}
+
+
+def chw(dev, img):
+    return torch.from_numpy(img).to(dev).movedim(-1, 0).float().contiguous()
+
+
+def graph_inputs(entry, seed):
+    """The entry point's inputs (host uint8, as a caller passes them)."""
+    if entry.startswith("match_batch"):
+        pairs = [scene.make_pair(GH, GW, seed=seed + k) for k in range(2)]
+        return tuple(np.stack([p[i] for p in pairs]) for i in (0, 1))
+    return scene.make_pair(GH, GW, seed=seed)
+
+
+def eager_call(dev, entry, cfg, gate, inputs):
+    """The eager module path of one entry point on the card, as one
+    tensor (or a tuple for mode 2's stacks)."""
+    from ug_stereomatcher_tpu_torch import pyramid as pyr
+    from ug_stereomatcher_tpu_torch.parallel.batch import make_batch_matcher
+    if entry.startswith("match_batch"):
+        lb, rb = (torch.stack([chw(dev, x) for x in b]) for b in inputs)
+        return make_batch_matcher(cfg, None, dev,
+                                  entry.endswith("foveated"))(lb, rb)
+    left, right = (chw(dev, x) for x in inputs)
+    if entry == "match":
+        n = cfg.num_levels(GH, GW)
+        lp, rp = pyr.build_pyramid_pair(left, right, cfg, n)
+        return match_mod.match_pyramid(lp, rp, cfg, (GH, GW),
+                                       resident_max_pixels=gate).levels[0]
+    levels, lf, rf = match_mod.match_foveated_pair(left, right, cfg, gate)
+    if entry == "match_hierarchical":
+        return pyr.hierarchical_disparity(levels, cfg, (GH, GW))
+    k = cfg.fovea_level
+    return (torch.cat(levels[:k], dim=-2),
+            *(torch.cat([x.flatten(0, 1) for x in f[:k]]) for f in (lf, rf)))
+
+
+def engine_call(eng, entry, inputs):
+    """The engine's entry point, as eager_call returns it."""
+    if entry.startswith("match_batch"):
+        res = eng.match_batch(*inputs, foveated=entry.endswith("foveated"))
+        planes = ((res.stack_h, res.stack_v, res.stack_c)
+                  if entry.endswith("foveated") else
+                  (res.disparity_h, res.disparity_v, res.confidence))
+        return torch.stack(planes, dim=1)
+    res = getattr(eng, entry)(*inputs)
+    if entry == "match_foveated":
+        return (torch.stack([res.stack_h, res.stack_v, res.stack_c]),
+                res.stack_left, res.stack_right)
+    return res.triplet
+
+
+def counted(call):
+    """call()'s result, launch counts and early-exit counts, the counters
+    set to 0 just before it and read after a synchronise."""
+    _build.reset_launch_counts()
+    match_mod.reset_host_syncs()
+    out = call()
+    torch.cuda.synchronize()
+    return (out, _build.launch_counts(), match_mod.iterations_run(),
+            match_mod.host_syncs(), _build.graph_replays())
+
+
+def assert_bits(a, b):
+    a, b = (x if isinstance(x, tuple) else (x,) for x in (a, b))
+    assert len(a) == len(b)
+    for x, y in zip(a, b):
+        assert x.shape == y.shape and torch.equal(x, y), (
+            (x - y).abs().max().item())
+
+
+@pytest.mark.parametrize("case", sorted(GRAPH_CASES))
+def test_entry_point_graph_equals_eager_bit_for_bit(cuda, case):
+    """Each captured entry point against the eager module path on the
+    same inputs: bit for bit, the same launch counts, early-exit
+    iterations and no host read, on the first call (the capture) and on
+    a replay with other inputs; a replay leaves earlier results as they
+    were, and the key's graph is captured once."""
+    entry, fields, gate = GRAPH_CASES[case]
+    cfg = MatcherConfig(fovea_level=3, **fields)
+    eng = StereoEngine(cfg, device="cuda", resident_max_pixels=gate)
+    results = []
+    for seed, replays in ((0, 1), (5, 1), (0, 1)):
+        inputs = graph_inputs(entry, seed)
+        ref, ref_counts, ref_iters, _, _ = counted(
+            lambda: eager_call(cuda, entry, cfg, gate, inputs))
+        out, counts, iters, syncs, n_replays = counted(
+            lambda: engine_call(eng, entry, inputs))
+        assert_bits(out, ref)
+        assert counts == ref_counts and iters == ref_iters
+        assert syncs == 0 and n_replays == replays
+        results.append((out, ref))
+    for out, ref in results:     # no later call changed an earlier result
+        assert_bits(out, ref)
+    assert_bits(results[0][0], results[2][0])
+    assert len(eng.graphs) == 1
+    if cfg.early_exit_delta is not None:   # some level exits early
+        assert 0 < ref_iters < sum(cfg.iters_for_level(i)
+                                   for i in range(cfg.num_levels(GH, GW)))
+
+
+def test_warmup_captures_the_served_graph(cuda):
+    cfg = MatcherConfig(fovea_level=3)
+    eng = StereoEngine(cfg, device="cuda")
+    eng.warmup(GH, GW)
+    eng.warmup(GH, GW, foveated=True)
+    assert len(eng.graphs) == 2
+    left, right = scene.make_pair(GH, GW)
+    _build.reset_launch_counts()
+    d1 = eng.get_disparities(left, right)
+    d2 = eng.get_disparities(left, right, foveated=True)
+    assert _build.graph_replays() == 2 and len(eng.graphs) == 2
+    assert_bits(d1.triplet, eager_call(cuda, "match", cfg, None,
+                                       (left, right)))
+    assert_bits(torch.stack([d2.stack_h, d2.stack_v, d2.stack_c]),
+                eager_call(cuda, "match_foveated", cfg, None,
+                           (left, right))[0])
+
+
+def test_a_new_shape_or_config_captures_a_new_graph(cuda):
+    cfg = MatcherConfig(fovea_level=3)
+    eng = StereoEngine(cfg, device="cuda")
+    a = scene.make_pair(GH, GW)
+    b = scene.make_pair(GH + 8, GW - 8)
+    for pair, n_graphs in ((a, 1), (a, 1), (b, 2), (a, 2), (b, 2)):
+        eng.match(*pair)
+        assert len(eng.graphs) == n_graphs
+    eng.match_foveated(*a)
+    assert len(eng.graphs) == 3
+    # a float CHW tensor on the card takes the uint8 HWC pair's graph
+    eng.match(chw(cuda, a[0]), chw(cuda, a[1]))
+    assert len(eng.graphs) == 3
+    other = StereoEngine(MatcherConfig(fovea_level=3, interp="bilinear"),
+                         device="cuda")
+    other.match(*a)
+    assert len(other.graphs) == 1 and len(eng.graphs) == 3
+    keys = set(eng.graphs) | set(other.graphs)
+    assert len(keys) == 4
+
+
+def test_two_engines_share_no_outputs(cuda):
+    cfg = MatcherConfig(fovea_level=3)
+    e1, e2 = (StereoEngine(cfg, device="cuda") for _ in range(2))
+    a, b = scene.make_pair(GH, GW, seed=0), scene.make_pair(GH, GW, seed=3)
+    r1 = e1.match(*a).triplet
+    r2 = e2.match(*a).triplet
+    assert torch.equal(r1, r2) and r1.data_ptr() != r2.data_ptr()
+    keep = r1.clone()
+    e2.match(*b)
+    e1.match(*b)
+    assert torch.equal(r1, keep)
+    r2.zero_()
+    assert torch.equal(e1.match(*a).triplet, keep)
+
+
+def test_level_kernel_captured_alone_bit_exact(cuda):
+    """The cooperative launch inside a CUDA graph: the level kernel's
+    replay equals its eager launch, on other inputs too."""
+    from ug_stereomatcher_tpu_torch.graphs import CapturedCall
+    thr = (1.0, 0.8, 0.6)
+    for method in ("nearest", "bilinear"):
+        def fn(left, right, disp):
+            return level.level_resident_match(left, right, disp, thr, 5,
+                                              True, CONSTS, method)
+        call = CapturedCall(fn, [(3, 101, 153)] * 3, cuda)
+        for seed in (0, 1):
+            args = _level_inputs(cuda, 101, 153, seed)
+            want = fn(*args)
+            _build.reset_launch_counts()
+            got = call(*args)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want)
+            assert _build.launch_counts() == {"level": 1}
+
+
+# The failed captures last: a capture that a call refuses ends that
+# capture, and the tests above need none.
+def test_taps_not_on_the_card_refuse_a_capture(cuda):
+    from ug_stereomatcher_tpu_torch.graphs import CapturedCall
+    from ug_stereomatcher_tpu_torch.ops.resample import ScaleMap
+
+    x = rand(cuda, 3, 40, 60)
+    seen = []
+
+    def fn(img):
+        # a new key on each run: the capture finds no taps on the card
+        seen.append(len(seen))
+        return resample.resample_tex(img, 20 + len(seen), 30,
+                                     ScaleMap(2.0))
+    call = CapturedCall(fn, [(3, 40, 60)], cuda)
+    with pytest.raises(RuntimeError, match="capture"):
+        call(x)
+    assert call.graph is None
+
+
+def test_a_host_read_in_the_capture_raises(cuda, monkeypatch):
+    """A call that reads the host during capture makes the engine raise,
+    on every call: nothing runs eagerly in its place."""
+    eng = StereoEngine(MatcherConfig(fovea_level=3), device="cuda")
+    real = match_mod.match_pyramid
+
+    def reads_host(*args, **kwargs):
+        res = real(*args, **kwargs)
+        res.levels[0].sum().item()
+        return res
+    monkeypatch.setattr(match_mod, "match_pyramid", reads_host)
+    left, right = scene.make_pair(GH, GW)
+    for _ in range(2):
+        with pytest.raises(RuntimeError, match="capture"):
+            eng.match(left, right)
+    (call,) = eng.graphs.values()
+    assert call.graph is None

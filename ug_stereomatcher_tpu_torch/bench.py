@@ -22,7 +22,11 @@ timed window, and stand in ``extra.values``.  A line whose gates fail,
 or whose run raised, prints ``{name}_FAILED`` with the error, and the run
 returns 1 after printing everything else; a scaling family that raised
 does the same.  Only a run in which every line was measured and passed
-its gates returns 0.  Times are not rounded.
+its gates returns 0.  Times are not rounded.  On the card the engine
+replays one CUDA graph per entry point and shape (graphs.py): a line's
+first call (``compile_plus_first_run_s``) builds the kernels and
+captures the graph, its warm calls and ``host_path_s`` (the warm call
+from host arrays) are replays.
 
 Environment: BENCH_MODE (one of ``_MODES``), BENCH_H, BENCH_W (default
 3264 x 4928), BENCH_REPEATS (3), BENCH_BATCH (8), BENCH_SCALING_MODES
@@ -169,7 +173,8 @@ def _latency(mode: str, h: int, w: int, repeats: int, device: torch.device,
         _synchronize(device)
         return time.perf_counter() - t0, res
 
-    compile_s, _ = once(left, right)  # the first call builds the kernels
+    # the first call builds the kernels and captures the graph
+    compile_s, _ = once(left, right)
     left_dev = torch.from_numpy(left).to(device)
     right_dev = torch.from_numpy(right).to(device)
     _synchronize(device)

@@ -270,7 +270,9 @@ __global__ void __launch_bounds__(kThreads, 2)
 
 // The largest co-resident grid for n_smooth (0 if the window does not fit
 // beside the static shared memory), after raising the kernel's dynamic
-// shared memory limit to the window's size.
+// shared memory limit to all that fits beside the static shared memory:
+// the limit only ever rises, so a launch captured in a CUDA graph with a
+// larger window than a later eager launch's stays within it on replay.
 template <bool BILINEAR>
 cudaError_t max_coresident(int n_smooth, int* out) {
   int dev = 0, coop = 0, sms = 0, optin = 0, per_sm = 0;
@@ -292,7 +294,7 @@ cudaError_t max_coresident(int n_smooth, int* out) {
   if (attr.sharedSizeBytes + dyn > (size_t)optin) return cudaSuccess;
   e = cudaFuncSetAttribute(level_kernel<BILINEAR>,
                            cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           (int)dyn);
+                           optin - (int)attr.sharedSizeBytes);
   if (e != cudaSuccess) return e;
   e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
       &per_sm, level_kernel<BILINEAR>, kThreads, dyn);
@@ -339,26 +341,29 @@ UGSM_API int ugsm_level_limits(int bilinear, int n_smooth, int* max_smooth,
 
 // left/right/disp/out: (3, H, W); scratch: 6 planes of H * W floats;
 // bar: kBarWords (11) words of device memory: after the launch the second
-// holds the barriers passed and the rest block 0's cycles per phase; thr: mi host floats.  grid_req = 0 sizes the grid from the
-// level (one block per tile); a larger request than the device holds at
-// once is refused with cudaErrorCooperativeLaunchTooLarge, and so is an
-// n_smooth whose window does not fit.
+// holds the barriers passed and the rest block 0's cycles per phase; thr:
+// mi host floats.  max_grid: ugsm_level_limits' grid for this n_smooth on
+// the current device (queried once by the caller, which also raises the
+// kernel's shared memory limit; 0 where the window does not fit).
+// grid_req = 0 sizes the grid from the level (one block per tile); a
+// larger request than max_grid is refused with
+// cudaErrorCooperativeLaunchTooLarge, and so is an n_smooth whose window
+// does not fit.  Stream capture takes the cooperative launch as a
+// cooperative kernel node (CUDA 12.9 runtime on an H100), so a CUDA graph
+// replays it as it is.
 UGSM_API int ugsm_level_resident(
     const float* left, const float* right, const float* disp, float* out,
     float* scratch, unsigned int* bar, const float* thr, int mi, int H,
     int W, int n_smooth, int replace_first, int bilinear, float g_outer,
     float g_inner, float g_centre, float avg_tap, float no_peak,
     float aff_scale, float aff_bias, float w_new, float w_old, int grid_req,
-    void* stream) {
+    int max_grid, void* stream) {
   if (H < 1 || W < 1 || mi < 0 || mi > kMaxIters || n_smooth < 0 ||
       n_smooth > kMaxSmooth || (long long)H * W > INT_MAX / 4 ||
       g_outer == 0.0f || g_inner == 0.0f || g_centre == 0.0f ||
       avg_tap == 0.0f)
     return (int)cudaErrorInvalidValue;
-  int max_grid = 0;
-  cudaError_t e = bilinear ? max_coresident<true>(n_smooth, &max_grid)
-                           : max_coresident<false>(n_smooth, &max_grid);
-  if (e != cudaSuccess) return (int)e;
+  cudaError_t e;
   const int ntiles = ((W + kTW - 1) / kTW) * ((H + kTH - 1) / kTH);
   const int grid = grid_req > 0 ? grid_req
                                 : (ntiles < max_grid ? ntiles : max_grid);

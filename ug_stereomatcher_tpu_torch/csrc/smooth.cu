@@ -111,12 +111,16 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// The shared memory limit is the largest window any launch asks for, the
+// same for every launch: a launch captured in a CUDA graph never finds it
+// lowered by a later eager launch with a smaller window.
 template <bool AVERAGE>
 cudaError_t launch_chunk(const Chunk& a, cudaStream_t s) {
   const size_t smem = window_bytes(a.k + (AVERAGE ? 1 : 0));
   cudaError_t e = cudaFuncSetAttribute(
       smooth_chunk_kernel<AVERAGE>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)window_bytes(kMaxChunk + 1));
   if (e != cudaSuccess) return e;
   e = cudaFuncSetAttribute(smooth_chunk_kernel<AVERAGE>,
                            cudaFuncAttributePreferredSharedMemoryCarveout,

@@ -14,13 +14,27 @@ left-right check), ``get_disparities`` (the service entry point) and
 runs every stencil and gather as a hand-written CUDA kernel,
 ``device="cpu"`` runs their plain PyTorch versions.  There is no fallback
 from one to the other.
+
+On the card ``match``, ``match_foveated``, ``match_hierarchical`` and
+``match_batch`` without a mesh (and so ``warmup``,
+``match_with_consistency`` and ``get_disparities``) run compiled once,
+as the JAX engine's ``_jitted`` cache runs them: the first call at a key
+(``graphs.graph_key``: entry point, shape, config and
+``resident_max_pixels``) captures the eager call as a CUDA graph, which
+every later call at that key replays (graphs.py).  The graphs live on
+the engine (``graphs``) and go with it.  A capture that fails raises.
+``profile_match`` and the mesh route stay eager, and so does the CPU
+engine; the module functions (``match.match_pyramid``,
+``match.match_foveated_pair``, ``parallel.batch.make_batch_matcher``)
+are the eager path on any device.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import threading
 import time
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -29,6 +43,7 @@ from ug_stereomatcher_tpu_torch import match as match_mod
 from ug_stereomatcher_tpu_torch import pyramid as pyr
 from ug_stereomatcher_tpu_torch.config import MatcherConfig, check_supported
 from ug_stereomatcher_tpu_torch.device import DTYPE, resolve_device
+from ug_stereomatcher_tpu_torch.graphs import CapturedCall, graph_key
 from ug_stereomatcher_tpu_torch.profiling import Timings
 
 
@@ -83,28 +98,20 @@ class FoveatedStackResult:
         return stack[..., base:base + 3 * h, :].unflatten(-2, (3, h))
 
 
-def _to_chw(image, device: torch.device) -> torch.Tensor:
-    """Accept (H, W, 3) or (3, H, W), uint8 or float, numpy or torch;
-    return a contiguous (3, H, W) float32 tensor on ``device``.  The copy
-    to the device happens before the cast, so uint8 crosses the bus."""
+def _on_device(image, device: torch.device, ndim: int) -> torch.Tensor:
+    """An ``ndim``-D image or batch, channels last or first, as a
+    channels-first view on ``device`` in its own dtype: the copy to the
+    device happens before any cast, so uint8 crosses the bus."""
     arr = image if isinstance(image, torch.Tensor) else torch.from_numpy(
         np.ascontiguousarray(image))
-    if arr.ndim != 3:
-        raise ValueError(f"expected 3-D RGB image, got shape {tuple(arr.shape)}")
+    if arr.ndim != ndim:
+        what = "3-D RGB image" if ndim == 3 else "a 4-D batch"
+        raise ValueError(f"expected {what}, got shape {tuple(arr.shape)}")
     arr = arr.to(device)
-    if arr.shape[0] != 3 and arr.shape[-1] == 3:
-        arr = arr.movedim(-1, 0)
-    return arr.to(DTYPE).contiguous()
-
-
-def _to_bchw(batch, device: torch.device) -> torch.Tensor:
-    """_to_chw for a batch: (B, H, W, 3) or (B, 3, H, W) -> a contiguous
-    (B, 3, H, W) float32 tensor on ``device``."""
-    arr = batch if isinstance(batch, torch.Tensor) else torch.from_numpy(
-        np.ascontiguousarray(batch))
-    if arr.ndim != 4:
-        raise ValueError(f"expected a 4-D batch, got shape {tuple(arr.shape)}")
-    return torch.stack([_to_chw(a, device) for a in arr])
+    c = ndim - 3
+    if arr.shape[c] != 3 and arr.shape[-1] == 3:
+        arr = arr.movedim(-1, c)
+    return arr
 
 
 def _check_pair(left: torch.Tensor, right: torch.Tensor) -> None:
@@ -139,6 +146,9 @@ class StereoEngine:
     LEVEL_RESIDENT_MAX_PIXELS; 0: every level runs per iteration).  It
     applies to ``match``, ``match_foveated`` and ``match_hierarchical``;
     ``match_batch`` keeps the default gate.
+    * ``graphs``: on the card, the captured calls by key
+      (graphs.graph_key -> graphs.CapturedCall), the counterpart of the
+      JAX engine's ``_cache``; empty on the CPU.
     """
 
     def __init__(self, config: Optional[MatcherConfig] = None,
@@ -150,6 +160,24 @@ class StereoEngine:
         self.resident_max_pixels = resident_max_pixels
         self.timings = Timings()
         self.metrics: Dict[str, object] = {}
+        self.graphs: Dict[tuple, CapturedCall] = {}
+        self._graphs_lock = threading.Lock()
+
+    def _run(self, entry: str, impl: Callable[..., object],
+             sources: Sequence[torch.Tensor], foveated: bool = False):
+        """``impl`` on float32 copies of ``sources`` (channels-first views
+        on the engine's device): eagerly on the CPU; on the card through
+        the CUDA graph of its key, captured at the key's first call."""
+        if self.device.type != "cuda":
+            return impl(*(x.to(DTYPE).contiguous() for x in sources))
+        key = graph_key(entry, sources[0].shape, self.config,
+                        self.resident_max_pixels, foveated)
+        with self._graphs_lock:
+            call = self.graphs.get(key)
+            if call is None:
+                call = self.graphs[key] = CapturedCall(
+                    impl, [x.shape for x in sources], self.device)
+        return call(*sources)
 
     def _record(self, name: str, t0: float, devices=None) -> None:
         for dev in devices or [self.device]:
@@ -164,7 +192,8 @@ class StereoEngine:
         (MatchGPULib.cpp:303 ``match`` with fov=0)."""
         t0 = time.perf_counter()
         left, right, (h, w) = self._pair(left, right)
-        trip = self._match_impl(left, right, height=h, width=w)
+        trip = self._run("match", lambda lft, rgt: self._match_impl(
+            lft, rgt, height=h, width=w), (left, right))
         self._record("match", t0)
         return MatchResult(trip[0], trip[1], trip[2])
 
@@ -175,19 +204,26 @@ class StereoEngine:
         t0 = time.perf_counter()
         left, right, (h, w) = self._pair(left, right)
         _check_fovea(self.config, h, w)
-        levels, lf, rf = match_mod.match_foveated_pair(
-            left, right, self.config, self.resident_max_pixels)
-        k = self.config.fovea_level
+        stacks, stack_l, stack_r = self._run(
+            "match_foveated", self._foveated_impl, (left, right))
         fov_h, fov_w = self.config.fovea_dims(h, w)
-        stacks = torch.cat(levels[:k], dim=-2)
-        # image stacks: level-major, channel-major rows inside each level
-        stack_l, stack_r = (torch.cat([x.flatten(0, 1) for x in f[:k]])
-                            for f in (lf, rf))
         self._record("match_foveated", t0)
         return FoveatedStackResult(
             stack_h=stacks[0], stack_v=stacks[1], stack_c=stacks[2],
             stack_left=stack_l, stack_right=stack_r, im_width=w,
-            im_height=h, roi_width=fov_w, roi_height=fov_h, num_levels=k)
+            im_height=h, roi_width=fov_w, roi_height=fov_h,
+            num_levels=self.config.fovea_level)
+
+    def _foveated_impl(self, left: torch.Tensor, right: torch.Tensor):
+        """Mode 2 of one pair: the (3, k * fh, fw) disparity stack and the
+        two image stacks, k = fovea_level."""
+        levels, lf, rf = match_mod.match_foveated_pair(
+            left, right, self.config, self.resident_max_pixels)
+        k = self.config.fovea_level
+        # image stacks: level-major, channel-major rows inside each level
+        stack_l, stack_r = (torch.cat([x.flatten(0, 1) for x in f[:k]])
+                            for f in (lf, rf))
+        return torch.cat(levels[:k], dim=-2), stack_l, stack_r
 
     def match_hierarchical(self, left, right) -> MatchResult:
         """The foveated match rebuilt into a full-resolution map: a sharp
@@ -196,9 +232,12 @@ class StereoEngine:
         t0 = time.perf_counter()
         left, right, (h, w) = self._pair(left, right)
         _check_fovea(self.config, h, w)
-        levels, _, _ = match_mod.match_foveated_pair(
-            left, right, self.config, self.resident_max_pixels)
-        trip = pyr.hierarchical_disparity(levels, self.config, (h, w))
+
+        def impl(lft, rgt):
+            levels, _, _ = match_mod.match_foveated_pair(
+                lft, rgt, self.config, self.resident_max_pixels)
+            return pyr.hierarchical_disparity(levels, self.config, (h, w))
+        trip = self._run("match_hierarchical", impl, (left, right))
         self._record("match_hierarchical", t0)
         return MatchResult(trip[0], trip[1], trip[2])
 
@@ -217,22 +256,27 @@ class StereoEngine:
         equals ``match`` (``match_foveated``) per pair bit for bit.  On a
         mesh that spans processes (parallel.pod_mesh) every rank passes the
         same batch, matches its own groups' pairs and gets the whole
-        result on its first local device."""
+        result on its first local device.  Without a mesh the card
+        replays one CUDA graph per batch shape and ``foveated``; a mesh
+        runs eagerly."""
         from ug_stereomatcher_tpu_torch.parallel.batch import (
             make_batch_matcher)
 
         t0 = time.perf_counter()
         fn = make_batch_matcher(self.config, mesh, self.device, foveated)
         dev = self.device if mesh is None else mesh.local_devices()[0]
-        lb = _to_bchw(left_batch, dev)
-        rb = _to_bchw(right_batch, dev)
+        lb = _on_device(left_batch, dev, 4)
+        rb = _on_device(right_batch, dev, 4)
         if lb.shape != rb.shape:
             raise ValueError(f"batch shapes differ: {tuple(lb.shape)} vs "
                              f"{tuple(rb.shape)}")
         h, w = lb.shape[-2:]
         if foveated:
             _check_fovea(self.config, h, w)
-        out = fn(lb, rb)
+        if mesh is None:
+            out = self._run("match_batch", fn, (lb, rb), foveated)
+        else:
+            out = fn(lb.to(DTYPE).contiguous(), rb.to(DTYPE).contiguous())
         self._record("match_batch", t0,
                      None if mesh is None else mesh.local_devices())
         if foveated:
@@ -251,9 +295,9 @@ class StereoEngine:
         completion time (the reference's per-level logs,
         MatchGPULib.cpp:1265-1269, and excutionTime buckets, :1108-1117).
         The syncs serialise the host and the device: use it for analysis,
-        not serving.  The port runs eagerly, so the result equals
-        :meth:`match`'s bit for bit (the gate ``resident_max_pixels``
-        included).
+        not serving.  It runs eagerly on every device (no CUDA graph), and
+        its result equals :meth:`match`'s bit for bit (the gate
+        ``resident_max_pixels`` included).
 
         Returns ``(MatchResult, breakdown)``, the breakdown with the JAX
         package's keys (``pyramid_build_s``, ``levels.level_XX.{match_s,
@@ -268,6 +312,7 @@ class StereoEngine:
 
         t_all = time.perf_counter()
         left, right, (h, w) = self._pair(left, right)
+        left, right = (x.to(DTYPE).contiguous() for x in (left, right))
         n = cfg.num_levels(h, w)
         dims = match_mod.level_dims_for_matching(cfg, h, w, n, False)
         t0 = time.perf_counter()
@@ -306,8 +351,10 @@ class StereoEngine:
 
     def warmup(self, height: int, width: int, foveated: bool = False) -> None:
         """Run one match of a zero pair of this size (``foveated``: mode
-        2), so that the first served pair pays no set-up; on the card its
-        first launch builds and loads the kernel library."""
+        2), so that the first served pair pays no set-up: on the card it
+        builds and loads the kernel library and captures the entry
+        point's CUDA graph for this size, as the JAX ``warmup``
+        compiles."""
         z = torch.zeros((3, height, width), dtype=DTYPE, device=self.device)
         if foveated:
             self.match_foveated(z, z)
@@ -339,10 +386,10 @@ class StereoEngine:
         return self.match(left, right)
 
     def _pair(self, left, right):
-        """Both images as (3, H, W) float32 on the engine's device, and
-        (H, W)."""
-        left = _to_chw(left, self.device)
-        right = _to_chw(right, self.device)
+        """Both images as (3, H, W) views on the engine's device in their
+        own dtype (``_run`` casts them), and (H, W)."""
+        left = _on_device(left, self.device, 3)
+        right = _on_device(right, self.device, 3)
         _check_pair(left, right)
         return left, right, tuple(left.shape[-2:])
 

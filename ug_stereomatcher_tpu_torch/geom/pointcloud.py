@@ -35,7 +35,7 @@ from ug_stereomatcher_tpu_torch.geom.triangulate import (
     triangulate_points,
 )
 from ug_stereomatcher_tpu_torch.ops.cuda.resample import resample_tex
-from ug_stereomatcher_tpu_torch.ops.resample import subsample
+from ug_stereomatcher_tpu_torch.ops.resample import ScaleMap, subsample
 
 
 @dataclasses.dataclass
@@ -82,7 +82,7 @@ def _resize(z: torch.Tensor, out_h: int, out_w: int, scale: float,
     if method == "cubic":
         return subsample(z, out_h, out_w, scale, method="cubic")
     return resample_tex(z[None].contiguous(), out_h, out_w,
-                        lambda t: t * scale, method=method)[0]
+                        ScaleMap(scale), method=method)[0]
 
 
 def _index(a: np.ndarray, device) -> torch.Tensor:

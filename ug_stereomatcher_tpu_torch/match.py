@@ -37,6 +37,8 @@ The JAX package's warp tiers exist only because a TPU cannot gather in
 
 from __future__ import annotations
 
+import contextlib
+import threading
 from typing import Callable, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
@@ -92,6 +94,49 @@ _HOST_SYNCS = [0]
 # (a 0-d int32 tensor added to on the device) with one more per level.
 _ITERATIONS = [0]
 _DEVICE_LAST: dict = {}
+# this thread's IterationCounts while it warms up or captures a CUDA graph
+_LOCAL = threading.local()
+
+
+class IterationCounts:
+    """The device loop's counts of one CUDA graph (graphs.CapturedCall):
+    ``last``, the sum of its early-exit levels' last iterations, a 0-d
+    int32 tensor that the graph computes anew on each replay (None where
+    no level exits early), and ``levels``, the number of those levels.
+    ``add_iterations`` adds them to ``iterations_run()`` after a
+    replay."""
+
+    def __init__(self):
+        self.last: Optional[torch.Tensor] = None
+        self.levels = 0
+
+
+@contextlib.contextmanager
+def counting_iterations_into(counts: IterationCounts):
+    """Count this thread's device-loop levels into ``counts`` instead of
+    ``iterations_run()``'s counters while the block runs."""
+    prev = getattr(_LOCAL, "counts", None)
+    _LOCAL.counts = counts
+    try:
+        yield counts
+    finally:
+        _LOCAL.counts = prev
+
+
+def _device_last(device: torch.device) -> torch.Tensor:
+    last = _DEVICE_LAST.get(device)
+    if last is None:
+        last = _DEVICE_LAST[device] = torch.zeros((), dtype=torch.int32,
+                                                  device=device)
+    return last
+
+
+def add_iterations(counts: IterationCounts) -> None:
+    """Add one replay's device-loop counts to ``iterations_run()``: one
+    add on the device, none where the graph has no early-exit level."""
+    if counts.last is not None:
+        _device_last(counts.last.device).add_(counts.last)
+        _ITERATIONS[0] += counts.levels
 
 
 def host_syncs() -> int:
@@ -228,12 +273,17 @@ def match_level(left: torch.Tensor, right: torch.Tensor, disp: torch.Tensor,
         return host_exit_loop(body, disp, thresholds, thr)
     state, buf = device_exit_loop(body, convergence.convergence_step, disp,
                                   thresholds, thr)
-    last = _DEVICE_LAST.get(left.device)
-    if last is None:
-        last = _DEVICE_LAST[left.device] = torch.zeros(
-            (), dtype=torch.int32, device=left.device)
-    last.add_(convergence.last_iteration(buf)[0])
-    _ITERATIONS[0] += 1
+    last = convergence.last_iteration(buf)[0]
+    counts = getattr(_LOCAL, "counts", None)
+    if counts is None:
+        _device_last(left.device).add_(last)
+        _ITERATIONS[0] += 1
+    else:
+        if counts.last is None:   # in a capture: the graph zeroes it
+            counts.last = torch.zeros((), dtype=torch.int32,
+                                      device=left.device)
+        counts.last.add_(last)
+        counts.levels += 1
     return state
 
 

@@ -19,17 +19,23 @@ and so do the row-sharded forms of warp, direction and smooth
 (``warp_row_halo``, ``warp_bilinear_row_halo``, ``direction_row_halo``,
 ``smooth_row_halo``).  The early-exit convergence test counts under
 ``convergence``; a guarded warp, direction or smooth (``stop`` given)
-counts under its usual name, whether or not the flag lets it run.
+counts under its usual name, whether or not the flag lets it run.  A
+CUDA graph (``graphs.CapturedCall``) counts its warm-up and capture into
+counters of its own (``counting_into``) and adds the capture's counts
+on each replay (``record_replay``), so the counts after a replay are
+those of the eager call; ``graph_replays`` counts the replays.
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
 import ctypes
 import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 from typing import Callable, Dict, List, Optional
 
@@ -67,7 +73,7 @@ SIGNATURES = {
     "ugsm_convergence": [_P, _P, _I, _F, _I, _I, _P, _P, _P, _I, _P],
     "ugsm_level_resident": [_P, _P, _P, _P, _P, _P, _PF, _I, _I, _I, _I,
                             _I, _I, _F, _F, _F, _F, _F, _F, _F, _F, _F, _I,
-                            _P],
+                            _I, _P],
 }
 # Host queries (no stream, no launch).
 QUERIES = {
@@ -78,6 +84,9 @@ QUERIES = {
 }
 
 LAUNCHES: Dict[str, int] = collections.Counter()
+_REPLAYS = [0]
+# this thread's counter while it warms up or captures a CUDA graph
+_LOCAL = threading.local()
 _LIB: Optional[ctypes.CDLL] = None
 _ENTRIES: Dict[str, Callable[..., int]] = {}
 
@@ -190,15 +199,41 @@ def launch(name: str, counter: str, *args) -> None:
         fn = _ENTRIES[name] = getattr(library(), name)
     stream = torch._C._cuda_getCurrentRawStream(-1)
     check(name, fn(*args, stream))
-    LAUNCHES[counter] += 1
+    counts = getattr(_LOCAL, "counts", None)
+    (LAUNCHES if counts is None else counts)[counter] += 1
+
+
+@contextlib.contextmanager
+def counting_into(counts: Dict[str, int]):
+    """Count this thread's launches into ``counts`` (a Counter) instead of
+    the process's counters while the block runs."""
+    prev = getattr(_LOCAL, "counts", None)
+    _LOCAL.counts = counts
+    try:
+        yield counts
+    finally:
+        _LOCAL.counts = prev
+
+
+def record_replay(counts: Dict[str, int]) -> None:
+    """Add the launches of one replayed CUDA graph (those its capture
+    counted) to the counters, and count the replay."""
+    LAUNCHES.update(counts)
+    _REPLAYS[0] += 1
 
 
 def reset_launch_counts() -> None:
     LAUNCHES.clear()
+    _REPLAYS[0] = 0
 
 
 def launch_counts() -> Dict[str, int]:
     return dict(LAUNCHES)
+
+
+def graph_replays() -> int:
+    """CUDA graph replays since the last ``reset_launch_counts()``."""
+    return _REPLAYS[0]
 
 
 def check_planes(name: str, *tensors: torch.Tensor) -> torch.device:

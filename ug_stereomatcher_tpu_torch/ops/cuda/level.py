@@ -12,7 +12,10 @@ tile +- 3, (B) the ``n_smooth`` passes and the average over the tile
 (2 per iteration; ``profile_level`` reads the count and block 0's
 cycles per phase back from the card), with the planes between
 phases in device memory (a coarse level's working set fits the 50 MB
-L2).  Phase B's window is dynamic shared memory that grows with
+L2).  A CUDA graph captures the cooperative launch as it is; the
+co-resident grid is a host query made once per device and schedule
+(``_limits``), outside any capture, and a graph replays on the device it
+was captured on.  Phase B's window is dynamic shared memory that grows with
 ``n_smooth``; an ``n_smooth`` above what the card holds
 (``max_smooth_passes``, 33 on an H100) raises.  The per-pixel math is
 the per-iteration kernels' own, so the result is bit-exact against the
@@ -27,6 +30,7 @@ once; a larger grid is refused by the C entry point and raises here.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Sequence
 
 import torch
@@ -84,10 +88,19 @@ def level_resident_match_plain(left: torch.Tensor, right: torch.Tensor,
 
 
 def _limits(method: str, n_smooth: int):
+    """(max_smooth, max_grid) of the current CUDA device: host queries,
+    made once per device, method and ``n_smooth`` (the first also raises
+    the kernel's shared memory limit on that device), so that no launch,
+    and no CUDA graph capture, repeats them."""
+    return _device_limits(torch.cuda.current_device(), method, int(n_smooth))
+
+
+@functools.lru_cache(maxsize=None)
+def _device_limits(index: int, method: str, n_smooth: int):
     max_smooth, max_grid = ctypes.c_int(0), ctypes.c_int(0)
     check("ugsm_level_limits",
-          library().ugsm_level_limits(int(method == "bilinear"),
-                                      int(n_smooth), ctypes.byref(max_smooth),
+          library().ugsm_level_limits(int(method == "bilinear"), n_smooth,
+                                      ctypes.byref(max_smooth),
                                       ctypes.byref(max_grid)))
     return max_smooth.value, max_grid.value
 
@@ -143,7 +156,8 @@ def _launch(left, right, disp, thresholds, n_smooth, replace_first, consts,
            ptr(out), ptr(scratch), ptr(barrier), thr, len(thresholds), H, W,
            int(n_smooth), int(bool(replace_first)), int(method == "bilinear"),
            float(g[0]), float(g[1]), float(g[2]), float(average_kernel()[1]),
-           *(float(c) for c in consts), int(grid_blocks))
+           *(float(c) for c in consts), int(grid_blocks),
+           max_coresident_blocks(method, n_smooth))
     return out, barrier
 
 

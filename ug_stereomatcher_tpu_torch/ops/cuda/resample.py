@@ -16,7 +16,15 @@ strip reuses in registers, and its grid is sized to the output
 The taps are computed on the host in float64 with numpy, as the JAX
 package's ``resample_tex`` computes them: nearest indices, or bilinear
 floor taps with float32 weights (``ops.resample.bilinear_taps``), and go
-to the card in one copy (``upload_taps``).  The bilinear form uses these
+to the card in one copy (``upload_taps``).  Where the coordinate map is
+an ``ops.resample.ScaleMap`` (every call of the pyramid and the
+upsamples) the taps are constants of the call site, as XLA folds them
+into the JAX package's executable: one device copy per (device, method,
+output size, source size, map, window) is computed and uploaded at its
+first call and kept for the process (``device_taps``; a few KB each), so
+a later call, and a CUDA graph captured over it, reads them with no host
+work and no host-to-device copy.  Any other map computes and uploads its
+taps per call, which a capture refuses.  The bilinear form uses these
 host taps on every level.  The JAX package sends small levels to its
 float32 ``tex_gather`` instead (pyramid.py:39-54), a size gate that exists
 only to skip the TPU kernel's tiling on small images; the port has no
@@ -28,7 +36,7 @@ relative; tests/test_torch_kernels.py).
 from __future__ import annotations
 
 import functools
-from typing import List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -37,6 +45,7 @@ from ug_stereomatcher_tpu_torch.config import INTERP_METHODS, unsupported_interp
 from ug_stereomatcher_tpu_torch.ops.cuda._build import check_planes, launch, ptr
 from ug_stereomatcher_tpu_torch.ops.resample import (
     CoordFn,
+    ScaleMap,
     bilinear_taps,
     nearest_indices,
     resample_static_plain,
@@ -162,6 +171,49 @@ def resample_static(img: torch.Tensor, iy: torch.Tensor, ix: torch.Tensor,
     return _launch(img, iy, ix, value_scale, wy, wx)
 
 
+def host_taps(method: str, out_h: int, out_w: int, h: int, w: int,
+              coord_of: CoordFn, row_off: int = 0,
+              col_off: int = 0) -> Tuple[np.ndarray, ...]:
+    """The per-axis taps of ``resample_tex`` for an (h, w) source, as host
+    arrays: nearest ``(iy, ix)``, bilinear ``(iy, ix, wy, wx)``."""
+    if method == "nearest":
+        return (nearest_indices(out_h, h, coord_of, row_off),
+                nearest_indices(out_w, w, coord_of, col_off))
+    (iy, wy), (ix, wx) = (bilinear_taps(out_h, h, coord_of, row_off),
+                          bilinear_taps(out_w, w, coord_of, col_off))
+    return iy, ix, wy, wx
+
+
+# (device, method, out_h, out_w, h, w, map, row_off, col_off) -> the taps
+# on that device; never evicted: a CUDA graph may read them
+_DEVICE_TAPS: Dict[tuple, List[torch.Tensor]] = {}
+
+
+def device_taps(dev: torch.device, method: str, out_h: int, out_w: int,
+                h: int, w: int, coord_of: ScaleMap, row_off: int = 0,
+                col_off: int = 0) -> List[torch.Tensor]:
+    """``host_taps`` on ``dev``, computed and uploaded at the first call of
+    this key and the same tensors on every later one.  A first call inside
+    a CUDA graph capture raises: a pageable host-to-device copy cannot be
+    captured (the engine's warm-up call fills the cache before it
+    captures)."""
+    key = (dev, method, out_h, out_w, h, w, coord_of, row_off, col_off)
+    taps = _DEVICE_TAPS.get(key)
+    if taps is None:
+        if dev.type == "cuda" and torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                f"resample_tex: the taps of {key[1:]} are not on the card "
+                f"yet, and a CUDA graph cannot capture their upload")
+        taps = upload_taps(dev, host_taps(method, out_h, out_w, h, w,
+                                          coord_of, row_off, col_off))
+        if dev.type == "cuda":
+            # the copy is done before any stream reads the kept taps
+            torch.cuda.current_stream(dev).synchronize()
+        # the first copy kept wins: a graph may already read it
+        taps = _DEVICE_TAPS.setdefault(key, taps)
+    return taps
+
+
 def resample_tex(img: torch.Tensor, out_h: int, out_w: int, coord_of: CoordFn,
                  value_scale: float = 1.0, method: str = "nearest",
                  row_off: int = 0, col_off: int = 0) -> torch.Tensor:
@@ -172,20 +224,22 @@ def resample_tex(img: torch.Tensor, out_h: int, out_w: int, coord_of: CoordFn,
     only the window of rows [row_off, row_off + out_h) and columns
     [col_off, col_off + out_w) of the full destination grid (JAX
     ops/pallas/resample.py:286-297): the window lives in the host taps,
-    so the kernel is the same.  The taps go to the card in one copy."""
+    so the kernel is the same.  On the card a ScaleMap's taps come from
+    ``device_taps``; any other map's go to the card in one copy."""
     if method not in INTERP_METHODS:
         raise unsupported_interp(method)
     dev = _check_image("resample_tex", img)
     h, w = img.shape[-2], img.shape[-1]
-    if method == "nearest":
-        taps = (nearest_indices(out_h, h, coord_of, row_off),
-                nearest_indices(out_w, w, coord_of, col_off))
-    else:
-        (iy, wy), (ix, wx) = (bilinear_taps(out_h, h, coord_of, row_off),
-                              bilinear_taps(out_w, w, coord_of, col_off))
-        taps = (iy, ix, wy, wx)
+    args = (method, out_h, out_w, h, w, coord_of, row_off, col_off)
     if dev.type == "cpu":
-        iy, ix, *weights = (torch.from_numpy(a) for a in taps)
+        iy, ix, *weights = (torch.from_numpy(a) for a in host_taps(*args))
         return resample_static_plain(img, iy, ix, value_scale, *weights)
-    iy, ix, *weights = upload_taps(dev, taps)
+    if isinstance(coord_of, ScaleMap):
+        iy, ix, *weights = device_taps(dev, *args)
+    elif torch.cuda.is_current_stream_capturing():
+        raise RuntimeError("resample_tex: a CUDA graph captures only "
+                           "ScaleMap coordinate maps, whose taps stay on "
+                           "the card")
+    else:
+        iy, ix, *weights = upload_taps(dev, host_taps(*args))
     return _launch(img, iy, ix, value_scale, *weights)

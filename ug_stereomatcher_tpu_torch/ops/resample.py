@@ -20,6 +20,7 @@ cast once to float32, as there.  The matcher never samples cubic.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Callable, Optional, Tuple
 
 import numpy as np
@@ -28,6 +29,20 @@ import torch
 from ug_stereomatcher_tpu_torch.config import unsupported_interp
 
 CoordFn = Callable[[np.ndarray], np.ndarray]
+
+
+@dataclasses.dataclass(frozen=True)
+class ScaleMap:
+    """The coordinate map t -> t * factor (t / factor with ``divide``):
+    the pyramid's subsamples and the disparity upsamples.  Equal maps
+    compare and hash equal, so the resample kernel's wrapper can keep the
+    taps of one call site on the card (ops/cuda/resample.py); a lambda
+    of the same arithmetic gives the same taps bit for bit."""
+    factor: float
+    divide: bool = False
+
+    def __call__(self, t):
+        return t / self.factor if self.divide else t * self.factor
 
 
 def nearest_indices(n_out: int, n_in: int, coord_of: CoordFn,

@@ -59,6 +59,7 @@ from ug_stereomatcher_tpu_torch.ops.cuda.smooth import (
 from ug_stereomatcher_tpu_torch.ops.cuda.warp import warp
 from ug_stereomatcher_tpu_torch.ops.resample import (
     CoordFn,
+    ScaleMap,
     bilinear_taps,
     nearest_indices,
 )
@@ -291,11 +292,11 @@ def sharded_upsample_to_level(disp, out_h: int, out_w: int,
     confidence-plane quirk handled as the unsharded op handles it."""
     kw = dict(pair=pair, min_rows_per_shard=min_rows_per_shard)
     inv = 1.0 / cfg.scale
-    up = sharded_resample(disp, out_h, out_w, lambda t: t * inv, cfg.scale,
+    up = sharded_resample(disp, out_h, out_w, ScaleMap(inv), cfg.scale,
                           cfg, mesh, **kw)
     if not cfg.scale_conf_on_upsample:
         conf = sharded_resample(RowBlocks.of(disp).map(lambda t: t[2:3]),
-                                out_h, out_w, lambda t: t * inv, 1.0, cfg,
+                                out_h, out_w, ScaleMap(inv), 1.0, cfg,
                                 mesh, **kw)
         up = _blockwise(lambda u, c: torch.cat([u[:2], c]), up, conf)
     return up
@@ -322,7 +323,7 @@ def sharded_build_pyramid(image, cfg: MatcherConfig, n: int, mesh: Mesh,
         blurred = sharded_blur(levels[i], "zero", mesh, **kw)
         for (j, s) in targets:
             levels[j] = sharded_resample(blurred, *dims[j],
-                                         lambda t, s=s: t * s, 1.0, cfg,
+                                         ScaleMap(s), 1.0, cfg,
                                          mesh, **kw)
     return levels
 

@@ -20,6 +20,7 @@ import torch
 from ug_stereomatcher_tpu_torch.config import MatcherConfig
 from ug_stereomatcher_tpu_torch.ops.cuda.blur import fused_blur_gaussian
 from ug_stereomatcher_tpu_torch.ops.cuda.resample import resample_tex
+from ug_stereomatcher_tpu_torch.ops.resample import ScaleMap
 
 
 def build_pyramid_pair(left: torch.Tensor, right: torch.Tensor,
@@ -54,11 +55,11 @@ def build_pyramid(image: torch.Tensor, cfg: MatcherConfig,
         if first:
             h2, w2 = dims[1]
             levels[1] = resample_tex(blurred, h2, w2,
-                                     lambda t: t * cfg.scale, 1.0, cfg.interp)
+                                     ScaleMap(cfg.scale), 1.0, cfg.interp)
         if i + 2 < n:
             h2, w2 = dims[i + 2]
             levels[i + 2] = resample_tex(blurred, h2, w2,
-                                         lambda t: t * scale2, 1.0, cfg.interp)
+                                         ScaleMap(scale2), 1.0, cfg.interp)
     return levels
 
 
@@ -88,10 +89,10 @@ def upsample_to_level(disp: torch.Tensor, out_h: int, out_w: int,
     next finer level, values scaled by SCALE (MatchGPULib.cpp:1279).  The
     reference scales the confidence plane too (cfg.scale_conf_on_upsample)."""
     inv = 1.0 / cfg.scale
-    up = resample_tex(disp, out_h, out_w, lambda t: t * inv, cfg.scale,
+    up = resample_tex(disp, out_h, out_w, ScaleMap(inv), cfg.scale,
                       cfg.interp)
     if not cfg.scale_conf_on_upsample:
-        conf = resample_tex(disp[2:3], out_h, out_w, lambda t: t * inv, 1.0,
+        conf = resample_tex(disp[2:3], out_h, out_w, ScaleMap(inv), 1.0,
                             cfg.interp)
         up = torch.cat([up[:2], conf], dim=0)
     return up
@@ -107,10 +108,10 @@ def foveated_upsample(disp: torch.Tensor, big_h: int, big_w: int,
     win = dict(row_off=big_h // 2 - fov_h // 2,
                col_off=big_w // 2 - fov_w // 2)
     inv = 1.0 / cfg.scale
-    up = resample_tex(disp, fov_h, fov_w, lambda t: t * inv, cfg.scale,
+    up = resample_tex(disp, fov_h, fov_w, ScaleMap(inv), cfg.scale,
                       cfg.interp, **win)
     if not cfg.scale_conf_on_upsample:
-        conf = resample_tex(disp[2:3], fov_h, fov_w, lambda t: t * inv, 1.0,
+        conf = resample_tex(disp[2:3], fov_h, fov_w, ScaleMap(inv), 1.0,
                             cfg.interp, **win)
         up = torch.cat([up[:2], conf], dim=0)
     return up
@@ -130,7 +131,8 @@ def hierarchical_disparity(stack: Sequence[torch.Tensor], cfg: MatcherConfig,
     current = stack[cfg.fovea_level - 1]
     for level in range(cfg.fovea_level - 1, 0, -1):
         big_h, big_w = dims[level - 1]
-        up = resample_tex(current, big_h, big_w, lambda t: t / cfg.scale,
+        up = resample_tex(current, big_h, big_w,
+                          ScaleMap(cfg.scale, divide=True),
                           cfg.scale, cfg.interp)
         upper, left = big_h // 2 - fov_h // 2, big_w // 2 - fov_w // 2
         up[..., upper:upper + fov_h, left:left + fov_w] = stack[level - 1]
