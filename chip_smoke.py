@@ -48,7 +48,9 @@ Phases (any failure exits non-zero before the last line is printed):
    and warm latency, peak device memory, and the kernel time by name over
    one warm match (torch.profiler) with the device's busy share; then two
    816 x 1232 pairs on a 2 x 2 mesh of this card against match per pair,
-   the 1 x N mesh across the cards where there are several; mode 2 on
+   the 1 x N mesh across the cards where there are several (eager: a
+   rows-group across cards) and the N x 1 mesh over them (a graph a
+   card); mode 2 on
    the same pair: match_foveated (f) nearest, (g) nearest per iteration,
    (h) bilinear, (i) match_hierarchical nearest and (j)
    match_batch(foveated=True) on the 1 x 4 mesh, each with its launch
@@ -79,11 +81,15 @@ Phases (any failure exits non-zero before the last line is printed):
    captures as a CUDA graph (match nearest and bilinear, with and
    without early exit; match_foveated nearest and bilinear;
    match_hierarchical; match_batch of 8 pairs at 815 x 1231, mode 1 and
-   foveated) bit-equal to the eager module path on the capture and on a
-   replay with a second scene, the first result unchanged, launch counts
-   and early-exit iterations equal and no host read, with the warm
-   latency and busy share of graph and eager in turns, the capture
-   time, the peak memory and the memory the graph holds; then phase
+   foveated), the batch matcher's mesh graphs (the sharded slices (d),
+   (e) and (j), the 2 x 2 pair batch, measure_throughput's dp, sp,
+   hybrid and dp_fov points at 408 x 616 on 4 entries of this card) and
+   profile_match's stage graphs, each bit-equal to its eager path on
+   the capture and on a replay with a second scene, the first result
+   unchanged, launch counts, replays and early-exit iterations equal and
+   no host read, with the warm latency and busy share of graph and
+   eager in turns, the capture time, the peak memory and the memory the
+   graphs hold (profile_match: its stage sums too); then phase
    3e, the host layers, writing only .npy, .txt, .json, .xml and .pcd
    files into a temporary directory: BatchRunner over a 3-pair .npy
    manifest with the verged rig as two XML files and clouds, with and
@@ -1154,24 +1160,44 @@ def pair_batch(dev, cfg, report: dict) -> None:
 
 
 def across_cards(dev, cfg, left, right, ref, report: dict) -> None:
-    """With more than one card: the 1 x N mesh over the cards, checked
-    against the unsharded slice and timed warm."""
+    """With more than one card: the 1 x N mesh over the cards (a rows-group
+    across cards: the eager route), checked against the unsharded slice
+    and timed warm; then the N x 1 mesh over them, N copies of the pair
+    (a graph replayed on every card), each pair against the slice, timed
+    warm with one replay a card."""
     from ug_stereomatcher_tpu_torch import StereoEngine
+    from ug_stereomatcher_tpu_torch.ops.cuda import _build
     from ug_stereomatcher_tpu_torch.parallel import make_mesh
 
     n = torch.cuda.device_count()
-    mesh = make_mesh(1, n)
     eng = StereoEngine(cfg, device=dev)
-    out = eng.match_batch(left[None], right[None], mesh=mesh).triplet[:, 0]
-    check_same(f"across_cards 1x{n}", out, ref)
-    warm = []
-    for _ in range(3):
-        t0 = time.perf_counter()
-        eng.match_batch(left[None], right[None], mesh=mesh)
-        warm.append(time.perf_counter() - t0)
-    print(f"across_cards 1x{n} warm_median_s={statistics.median(warm):.4f} "
-          f"warm_s={[round(x, 4) for x in warm]}")
-    report["across_cards"] = {"cards": n, "warm_s": warm}
+    row = report["across_cards"] = {"cards": n}
+    for label, mesh, b in (("rows", make_mesh(1, n), 1),
+                           ("pairs", make_mesh(n, 1), n)):
+        lb, rb = (x.expand((b,) + tuple(x.shape)) for x in (left, right))
+        out = eng.match_batch(lb, rb, mesh=mesh).triplet
+        route = eng.metrics["match_batch_route"]
+        for i in range(b):
+            check_same(f"across_cards {mesh.shape} pair {i}", out[:, i], ref)
+        del out
+        warm = []
+        for _ in range(3):
+            _build.reset_launch_counts()
+            t0 = time.perf_counter()
+            eng.match_batch(lb, rb, mesh=mesh)
+            warm.append(time.perf_counter() - t0)
+        replays = _build.graph_replays()
+        print(f"across_cards {label} {mesh.shape} route={route} "
+              f"replays_per_call={replays} warm_median_s="
+              f"{statistics.median(warm):.4f} "
+              f"warm_s={[round(x, 4) for x in warm]}")
+        if route != ("eager" if label == "rows" else "graph") or (
+                replays != (0 if label == "rows" else n)):
+            fail(f"across_cards {label}: route {route}, {replays} replays")
+        row[label] = {"mesh": list(mesh.shape.values()), "route": route,
+                      "warm_s": warm, "replays_per_call": replays}
+    del eng
+    torch.cuda.empty_cache()
 
 
 def level_table(dev, cfg, left, right, report: dict) -> None:
@@ -1725,8 +1751,8 @@ def graph_case(dev, cfg, entry: str):
 
     def eager(left, right):
         if entry.startswith("match_batch"):
-            out = make_batch_matcher(cfg, None, dev, fov)(chw(left),
-                                                          chw(right))
+            out = make_batch_matcher(cfg, None, dev, fov, capture=False)(
+                chw(left), chw(right))
         else:
             lt, rt = chw(left), chw(right)
             h, w = lt.shape[-2:]
@@ -1797,22 +1823,208 @@ def warm_ms(call, *inputs, n: int = 5):
     return med * 1e3, [round(t * 1e3, 3) for t in times]
 
 
+def held_calls(holder) -> list:
+    """The captured calls (graphs.CapturedCall) an engine or a batch
+    matcher holds: an engine's entry points and profile stages, and the
+    graphs of its batch matchers (one a batch shape and card)."""
+    calls = []
+    for obj in [holder] + list(getattr(holder, "matchers", {}).values()):
+        for v in getattr(obj, "graphs", {}).values():
+            calls.extend(v.values() if isinstance(v, dict) else [v])
+    return calls
+
+
+def graph_entry(dev, label: str, make, first, second, replays: int,
+                info: dict) -> dict:
+    """One entry of phase 3h.  ``make()`` gives ``(holder, eager,
+    graph)``: ``graph`` a call that replays the graphs ``holder`` (an
+    engine or a batch matcher) captures at its first call, ``eager`` its
+    eager counterpart, each returning a tuple of tensors, synchronised.
+    The two on the same inputs: bit for bit,
+    with the same launch counts, early-exit iterations, no host read and
+    ``replays`` replays, on the first call (the capture) and on a replay
+    of ``second``; the first result unchanged by the second.  Then the
+    warm latency (median of 10) and busy share of both in turns (eager,
+    graph, graph, eager), the capture seconds, the peak memory of the
+    first call against the eager call's and the memory the graphs hold
+    (only this function holds ``holder``, and drops it)."""
+    holder, eager, graph = make()
+    torch.cuda.reset_peak_memory_stats(dev)
+    ref1, want1, it1, _, _ = counted_call(eager, *first)
+    eager_peak = torch.cuda.max_memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    out1, got1, git1, syncs1, rep1 = counted_call(graph, *first)
+    first_s = time.perf_counter() - t0
+    graph_peak = torch.cuda.max_memory_allocated(dev)
+    calls = held_calls(holder)
+    capture_s = sum(c.capture_s for c in calls)
+    same_bits(label, "first call", out1, ref1)
+    if (got1, git1, syncs1, rep1) != (want1, it1, 0, replays):
+        fail(f"graphs {label}: first call counts {got1}, {git1} "
+             f"iterations, {syncs1} host reads, {rep1} replays; eager "
+             f"{want1}, {it1} iterations, {replays} replays wanted")
+    ref2, want2, it2, _, _ = counted_call(eager, *second)
+    out2, got2, git2, syncs2, rep2 = counted_call(graph, *second)
+    same_bits(label, "second call", out2, ref2)
+    same_bits(label, "first result after the second call", out1, ref1)
+    if (got2, git2, syncs2, rep2) != (want2, it2, 0, replays):
+        fail(f"graphs {label}: replay counts {got2}, {git2} "
+             f"iterations, {syncs2} host reads, {rep2} replays; eager "
+             f"{want2}, {it2} iterations, {replays} replays wanted")
+    del ref1, ref2, out1, out2
+    # in turns: eager, graph, graph, eager
+    e1, e1s = warm_ms(eager, *first)
+    g1, g1s = warm_ms(graph, *first)
+    g2, g2s = warm_ms(graph, *first)
+    e2, e2s = warm_ms(eager, *first)
+    graph_med = statistics.median(g1s + g2s)
+    eager_med = statistics.median(e1s + e2s)
+    gprof = profile_match(lambda: graph(*first), graph_med / 1e3,
+                          f"graphs {label} graph")
+    eprof = profile_match(lambda: eager(*first), eager_med / 1e3,
+                          f"graphs {label} eager")
+    route = getattr(holder, "route", None)
+    # the graphs' private pools outlive empty_cache while they live
+    torch.cuda.empty_cache()
+    reserved1 = torch.cuda.memory_reserved(dev)
+    del holder, graph, eager, calls
+    torch.cuda.empty_cache()
+    held = reserved1 - torch.cuda.memory_reserved(dev)
+    if route not in (None, "graph"):
+        fail(f"graphs {label}: the matcher ran {route}")
+    row = {**info, "launches": got1, "iterations_run": git1,
+           "iterations_run_second": git2, "replays_per_call": replays,
+           "graph_warm_ms": graph_med, "eager_warm_ms": eager_med,
+           "graph_warm_runs_ms": g1s + g2s,
+           "eager_warm_runs_ms": e1s + e2s,
+           "graph_busy_share": gprof["busy_share"],
+           "eager_busy_share": eprof["busy_share"],
+           "graph_device_busy_ms": gprof["device_busy_ms"],
+           "eager_device_busy_ms": eprof["device_busy_ms"],
+           "first_call_s": first_s, "capture_s": capture_s,
+           "peak_mem_bytes": graph_peak, "eager_peak_mem_bytes":
+           eager_peak, "graph_held_bytes": held}
+    print(f"graphs {label} bit-equal to eager (first call and replay), "
+          f"launches and iterations ({git1}, {git2}) equal, 0 host "
+          f"reads, {replays} replays a call; warm graph={graph_med:.3f} ms "
+          f"(busy {row['graph_busy_share']:.3f}) eager={eager_med:.3f} ms "
+          f"(busy {row['eager_busy_share']:.3f}) runs graph "
+          f"{g1s + g2s} eager {e1s + e2s}; first_call_s={first_s:.4f} "
+          f"capture_s={capture_s:.4f} peak_mem graph={graph_peak} "
+          f"eager={eager_peak} graph_held={held}")
+    return row
+
+
+def synced(fn):
+    """``fn`` as a phase 3h call: its result as a tuple, synchronised."""
+    def call(*inputs):
+        out = fn(*inputs)
+        torch.cuda.synchronize()
+        return out if isinstance(out, tuple) else (out,)
+    return call
+
+
+def mesh_entries(dev, cfg, bil, left, right, other):
+    """Phase 3h's mesh entries: (label, config, mesh, foveated, first
+    inputs, second inputs, info), the inputs (B, 3, H, W) batches on the
+    card as a caller passes them (uint8 views of the scene; float32 for
+    the harness's points).  The row-sharded 16 MP slices (d), (e) and (j)
+    on a 1 x 4 mesh of this card; the 2 x 2 pair batch of phase 3c; the
+    dp, sp, hybrid and dp_fov points of measure_throughput at 408 x 616
+    on 4 entries of this card (its mesh shapes, batches and inputs)."""
+    from ug_stereomatcher_tpu_torch import scene
+    from ug_stereomatcher_tpu_torch.parallel import make_mesh
+    from ug_stereomatcher_tpu_torch.parallel.throughput import _mesh_shape
+
+    def batch(*images):
+        return [torch.stack([x.movedim(-1, -3) for x in side])
+                for side in zip(*images)]
+
+    rows = make_mesh(1, 4, devices=[dev] * 4)
+    full = batch((left, right)), batch(other)
+    for label, c, fov in (("mesh_sharded_nearest", cfg, False),
+                          ("mesh_sharded_bilinear", bil, False),
+                          ("mesh_sharded_foveated", cfg, True)):
+        yield (label, c, rows, fov, *full, {"shape": [H, W], "mesh": [1, 4],
+                                            "batch": 1, "foveated": fov})
+    h, w = 816, 1232
+    pb = [batch(*[[torch.from_numpy(x).to(dev)
+                   for x in scene.make_pair(h, w, seed=s + k)]
+                  for k in (0, 1)]) for s in (0, 100)]
+    yield ("mesh_pair_batch_2x2", cfg, make_mesh(2, 2, devices=[dev] * 4),
+           False, *pb, {"shape": [h, w], "mesh": [2, 2], "batch": 2,
+                        "foveated": False})
+    for family in ("dp", "sp", "hybrid", "dp_fov"):
+        p, r, b = _mesh_shape(family.removesuffix("_fov"), 4, 1)
+        ins = []
+        for seed in (0, 1):
+            x = np.random.RandomState(seed).rand(
+                b, 3, SCALE_H, SCALE_W).astype(np.float32) * 255
+            ins.append([torch.from_numpy(x).to(dev),
+                        torch.from_numpy(np.roll(x, 2, axis=-1)).to(dev)])
+        fov = family.endswith("_fov")
+        yield (f"mesh_throughput_{family}", cfg, make_mesh(
+            p, r, devices=[dev] * (p * r)), fov, *ins,
+            {"shape": [SCALE_H, SCALE_W], "mesh": [p, r], "batch": b,
+             "foveated": fov})
+
+
+def eager_profile(dev, cfg):
+    """The eager counterpart of StereoEngine.profile_match on the card
+    (its loop before the stage graphs): the module path's stages, each
+    synchronised and timed.  Returns ``(left, right) -> (triplet,)`` and
+    the list its breakdowns go to."""
+    from ug_stereomatcher_tpu_torch import match as match_mod
+    from ug_stereomatcher_tpu_torch import pyramid as pyr
+
+    seen = []
+
+    def timed(fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    def run(left, right):
+        lt, rt = (x.movedim(-1, -3).float().contiguous()
+                  for x in (left, right))
+        h, w = lt.shape[-2:]
+        n = cfg.num_levels(h, w)
+        dims = match_mod.level_dims_for_matching(cfg, h, w, n, False)
+        (lp, rp), build_s = timed(pyr.build_pyramid_pair, lt, rt, cfg, n)
+        disp = torch.zeros((3,) + tuple(dims[n - 1]), device=dev)
+        total = 0.0
+        for i in range(n - 1, -1, -1):
+            disp, secs = timed(match_mod.match_level, lp[i], rp[i], disp, i,
+                               cfg, i == n - 1)
+            total += secs
+            if i > 0:
+                disp, secs = timed(pyr.upsample_to_level, disp,
+                                   *dims[i - 1], cfg)
+                total += secs
+        seen.append({"pyramid_build_s": build_s, "match_total_s": total})
+        return (disp,)
+    return run, seen
+
+
 def graphs_phase(dev, cfg, left, right, report: dict) -> None:
     """Phase 3h, the compile-once cache (graphs.py): each captured entry
     point at 16 MP (mode 1 nearest and bilinear, each with and without
     early exit at 0.1 / 0.02 px; mode 2 nearest and bilinear; the
     hierarchical map) and the 8-pair batch at 815 x 1231 (mode 1 and
-    foveated) against the eager module path on the same inputs, bit for
-    bit, with the same launch counts, early-exit iterations and no host
-    read, on the first call (the capture) and on a replay with a second
-    scene (seed + 1); the first call's result unchanged by the second.
-    Then the warm latency (median of 5) and busy share of the graph and
-    of the eager path in turns (eager, graph, graph, eager), the capture
-    time, the peak memory of the first call against the eager call's and
-    the memory the engine's graph holds."""
+    foveated) against the eager module path on the same inputs; then the
+    mesh route's graphs (mesh_entries: the batch matcher against its
+    eager form, capture=False, one replay a call on this card), and
+    profile_match's stage graphs against its eager stages (2n replays a
+    call).  Each through graph_entry: bit for bit, the same counts, on
+    the capture and on a replay of a second scene (seed + 1), warm
+    latency and busy share in turns, capture seconds, peak and held
+    memory."""
     import dataclasses
 
-    from ug_stereomatcher_tpu_torch import scene
+    from ug_stereomatcher_tpu_torch import StereoEngine, scene
+    from ug_stereomatcher_tpu_torch.parallel.batch import make_batch_matcher
 
     t_phase = time.perf_counter()
     other = [torch.from_numpy(x).to(dev)
@@ -1829,72 +2041,55 @@ def graphs_phase(dev, cfg, left, right, report: dict) -> None:
         else:
             first, second = (left, right), other
         torch.cuda.empty_cache()
-        reserved0 = torch.cuda.memory_reserved(dev)
-        eng, eager, engine = graph_case(dev, c, entry)
-        torch.cuda.reset_peak_memory_stats(dev)
-        ref1, want1, it1, _, _ = counted_call(eager, *first)
-        eager_peak = torch.cuda.max_memory_allocated(dev)
-        torch.cuda.reset_peak_memory_stats(dev)
-        t0 = time.perf_counter()
-        out1, got1, git1, syncs1, rep1 = counted_call(engine, *first)
-        first_s = time.perf_counter() - t0
-        graph_peak = torch.cuda.max_memory_allocated(dev)
-        (capture_s,) = (g.capture_s for g in eng.graphs.values())
-        same_bits(label, "first call", out1, ref1)
-        if (got1, git1, syncs1, rep1) != (want1, it1, 0, 1):
-            fail(f"graphs {label}: first call counts {got1}, {git1} "
-                 f"iterations, {syncs1} host reads, {rep1} replays; eager "
-                 f"{want1}, {it1} iterations")
-        ref2, want2, it2, _, _ = counted_call(eager, *second)
-        out2, got2, git2, syncs2, rep2 = counted_call(engine, *second)
-        same_bits(label, "second call", out2, ref2)
-        same_bits(label, "first result after the second call", out1, ref1)
-        if (got2, git2, syncs2, rep2) != (want2, it2, 0, 1):
-            fail(f"graphs {label}: replay counts {got2}, {git2} "
-                 f"iterations, {syncs2} host reads, {rep2} replays; eager "
-                 f"{want2}, {it2} iterations")
-        del ref1, ref2, out1, out2
-        # in turns: eager, graph, graph, eager
-        e1, e1s = warm_ms(eager, *first)
-        g1, g1s = warm_ms(engine, *first)
-        g2, g2s = warm_ms(engine, *first)
-        e2, e2s = warm_ms(eager, *first)
-        graph_med = statistics.median(g1s + g2s)
-        eager_med = statistics.median(e1s + e2s)
-        gprof = profile_match(lambda: engine(*first), graph_med / 1e3,
-                              f"graphs {label} graph")
-        eprof = profile_match(lambda: eager(*first), eager_med / 1e3,
-                              f"graphs {label} eager")
-        # the graph's private pool outlives empty_cache while it lives
+        out[label] = graph_entry(
+            dev, label, lambda: graph_case(dev, c, entry), first, second, 1,
+            {"entry": entry, "config": fields})
+    del batches, first, second
+
+    def matchers(c, mesh, fov):
+        graph = make_batch_matcher(c, mesh, foveated=fov)
+        return graph, synced(make_batch_matcher(c, mesh, foveated=fov,
+                                                capture=False)), synced(graph)
+    bil = dataclasses.replace(cfg, interp="bilinear")
+    for label, c, mesh, fov, first, second, info in mesh_entries(
+            dev, cfg, bil, left, right, other):
         torch.cuda.empty_cache()
-        reserved1 = torch.cuda.memory_reserved(dev)
-        del eng, eager, engine
-        torch.cuda.empty_cache()
-        held = reserved1 - torch.cuda.memory_reserved(dev)
-        row = {"entry": entry, "config": fields,
-               "launches": got1, "iterations_run": git1,
-               "iterations_run_second": git2,
-               "graph_warm_ms": graph_med, "eager_warm_ms": eager_med,
-               "graph_warm_runs_ms": g1s + g2s,
-               "eager_warm_runs_ms": e1s + e2s,
-               "graph_busy_share": gprof["busy_share"],
-               "eager_busy_share": eprof["busy_share"],
-               "graph_device_busy_ms": gprof["device_busy_ms"],
-               "eager_device_busy_ms": eprof["device_busy_ms"],
-               "first_call_s": first_s, "capture_s": capture_s,
-               "peak_mem_bytes": graph_peak, "eager_peak_mem_bytes":
-               eager_peak, "graph_held_bytes": held,
-               "reserved_before_bytes": reserved0}
-        out[label] = row
-        print(f"graphs {label} bit-equal to eager (first call and replay), "
-              f"launches and iterations ({git1}, {git2}) equal, 0 host "
-              f"reads; warm graph={graph_med:.3f} ms (busy "
-              f"{row['graph_busy_share']:.3f}) eager={eager_med:.3f} ms "
-              f"(busy {row['eager_busy_share']:.3f}) runs graph "
-              f"{g1s + g2s} eager {e1s + e2s}; first_call_s={first_s:.4f} "
-              f"capture_s={row['capture_s']:.4f} peak_mem graph="
-              f"{graph_peak} eager={eager_peak} graph_held={held}")
-    del other, batches
+        out[label] = graph_entry(
+            dev, label, lambda: matchers(c, mesh, fov), first, second, 1,
+            {"entry": "make_batch_matcher", **info})
+        del first, second
+    torch.cuda.empty_cache()
+    n = cfg.num_levels(H, W)
+    eager_stages, graph_stages = [], []
+
+    def profiled():
+        eng = StereoEngine(cfg, device=dev)
+        eager, seen = eager_profile(dev, cfg)
+        eager_stages[:] = [seen]
+
+        def staged(lft, rgt):
+            res, prof = eng.profile_match(lft, rgt)
+            graph_stages.append(prof)
+            torch.cuda.synchronize()
+            return (res.triplet,)
+        return eng, eager, staged
+    out["profile_match"] = row = graph_entry(
+        dev, "profile_match", profiled, (left, right), other, 2 * n,
+        {"entry": "profile_match", "stages": 2 * n})
+    # the ten warm calls of each (after the first two, before the profile)
+    for name, runs in (("graph", graph_stages),
+                       ("eager", eager_stages[0])):
+        for key in ("pyramid_build_s", "match_total_s"):
+            row[f"{name}_{key}_median"] = statistics.median(
+                r[key] for r in runs[2:12])
+        print(f"graphs profile_match {name} stages: pyramid_build_s median "
+              f"{row[f'{name}_pyramid_build_s_median']:.5f} match_total_s "
+              f"median {row[f'{name}_match_total_s_median']:.5f} over 10 "
+              f"warm calls")
+    if sorted(graph_stages[-1]["levels"]) != [f"level_{i:02d}"
+                                              for i in range(n)]:
+        fail("graphs profile_match: the breakdown's levels changed")
+    del other
     torch.cuda.empty_cache()
     print(f"graphs phase {time.perf_counter() - t_phase:.1f} s; "
           f"nvidia-smi {nvidia_smi()}")

@@ -35,7 +35,15 @@ eager module path with the same launch counts, early-exit iterations
 and no host read, on the capture and on replays with other inputs; a
 graph per key and engine, fresh outputs, the level kernel's cooperative
 launch captured alone, and a capture that reads the host, or finds
-taps not yet on the card, raising.
+taps not yet on the card, raising.  The mesh route's graphs: dp [cuda:0]
+* 2, sp 1 x 4 and hybrid 2 x 2 of this card, modes 1 and 2, with and
+without early exit (on the replicated levels), bit-equal to the eager
+matcher with its counts, on the capture and on a replay of another
+scene, and to match per pair where no level is sharded under early
+exit; measure_throughput's dp and sp points at 408 x 616 replaying;
+profile_match's stage graphs bit-equal to the eager match with its
+counts; a dp mesh across two cards (a graph per card) and a rows-group
+across them (eager), which skip on a machine with one card.
 """
 
 import numpy as np
@@ -1085,8 +1093,8 @@ def eager_call(dev, entry, cfg, gate, inputs):
     from ug_stereomatcher_tpu_torch.parallel.batch import make_batch_matcher
     if entry.startswith("match_batch"):
         lb, rb = (torch.stack([chw(dev, x) for x in b]) for b in inputs)
-        return make_batch_matcher(cfg, None, dev,
-                                  entry.endswith("foveated"))(lb, rb)
+        return make_batch_matcher(cfg, None, dev, entry.endswith("foveated"),
+                                  capture=False)(lb, rb)
     left, right = (chw(dev, x) for x in inputs)
     if entry == "match":
         n = cfg.num_levels(GH, GW)
@@ -1114,6 +1122,13 @@ def engine_call(eng, entry, inputs):
         return (torch.stack([res.stack_h, res.stack_v, res.stack_c]),
                 res.stack_left, res.stack_right)
     return res.triplet
+
+
+def n_graphs(eng):
+    """The engine's CUDA graphs: its entry points' and its batch
+    matchers' (one a batch shape and card)."""
+    return len(eng.graphs) + sum(len(calls) for m in eng.matchers.values()
+                                 for calls in m.graphs.values())
 
 
 def counted(call):
@@ -1159,7 +1174,7 @@ def test_entry_point_graph_equals_eager_bit_for_bit(cuda, case):
     for out, ref in results:     # no later call changed an earlier result
         assert_bits(out, ref)
     assert_bits(results[0][0], results[2][0])
-    assert len(eng.graphs) == 1
+    assert n_graphs(eng) == 1
     if cfg.early_exit_delta is not None:   # some level exits early
         assert 0 < ref_iters < sum(cfg.iters_for_level(i)
                                    for i in range(cfg.num_levels(GH, GW)))
@@ -1276,3 +1291,134 @@ def test_a_host_read_in_the_capture_raises(cuda, monkeypatch):
             eng.match(left, right)
     (call,) = eng.graphs.values()
     assert call.graph is None
+
+
+# ------------------------------------ the mesh route and profile_match
+MESH_ROUTES = {"dp": (2, 1, 3), "sp": (1, 4, 1), "hybrid": (2, 2, 3)}
+
+
+def batch_on(dev, b, seed):
+    """b scene pairs as uint8 (B, H, W, 3) batches on ``dev``, and their
+    float32 (B, 3, H, W) form."""
+    pairs = [scene.make_pair(GH, GW, seed=seed + k) for k in range(b)]
+    raw = [torch.from_numpy(np.stack([p[i] for p in pairs])).to(dev)
+           for i in (0, 1)]
+    return raw, [x.movedim(-1, 1).float().contiguous() for x in raw]
+
+
+def batch_planes(res, foveated):
+    names = (("stack_h", "stack_v", "stack_c") if foveated else
+             ("disparity_h", "disparity_v", "confidence"))
+    return torch.stack([getattr(res, n) for n in names], dim=1)
+
+
+@pytest.mark.parametrize("ee", [False, True])
+@pytest.mark.parametrize("foveated", [False, True])
+@pytest.mark.parametrize("route", sorted(MESH_ROUTES))
+def test_mesh_route_graph_equals_eager_bit_for_bit(cuda, route, foveated,
+                                                   ee):
+    """The engine's mesh route on this card against the eager matcher:
+    bit for bit, the same launch counts, early-exit iterations and no
+    host read, one replay a call, on the capture and on a replay of
+    another scene, the first result unchanged; each pair equal to match
+    (match_foveated) where no level is sharded under early exit, and the
+    sharded warning on every call, replays included."""
+    import warnings
+
+    from ug_stereomatcher_tpu_torch.parallel.batch import make_batch_matcher
+    p, r, b = MESH_ROUTES[route]
+    cfg = MatcherConfig(fovea_level=3, early_exit_delta=0.1 if ee else None)
+    mesh = par.make_mesh(p, r, devices=[cuda] * (p * r))
+    eng = StereoEngine(cfg, device="cuda")
+    eager = make_batch_matcher(cfg, mesh, foveated=foveated, capture=False)
+    warns = ee and r > 1
+    results = []
+    for seed in (0, 5):
+        raw, (lb, rb) = batch_on(cuda, b, seed)
+        with warnings.catch_warnings(record=True) as seen:
+            warnings.simplefilter("always")
+            ref, want, want_it, _, _ = counted(lambda: eager(lb, rb))
+            out, got, got_it, syncs, replays = counted(
+                lambda: batch_planes(eng.match_batch(
+                    *raw, mesh=mesh, foveated=foveated), foveated))
+        n_warned = sum("early_exit_delta" in str(w.message) for w in seen)
+        assert n_warned == (2 if warns else 0)   # eager's and the engine's
+        assert_bits(out, ref)
+        assert got == want and got_it == want_it
+        assert syncs == 0 and replays == 1
+        assert eng.metrics["match_batch_route"] == "graph"
+        if not warns:
+            for i in range(b):
+                if foveated:
+                    res = eng.match_foveated(raw[0][i], raw[1][i])
+                    single = torch.stack([res.stack_h, res.stack_v,
+                                          res.stack_c])
+                else:
+                    single = eng.match(raw[0][i], raw[1][i]).triplet
+                assert_bits(out[i], single)
+        results.append((out, ref))
+    for out, ref in results:
+        assert_bits(out, ref)
+    (matcher,) = eng.matchers.values()
+    assert len(matcher.graphs) == 1
+    card = torch.device("cuda", torch.cuda.current_device())
+    assert [list(c) for c in matcher.graphs.values()] == [[card]]
+
+
+@pytest.mark.parametrize("mode", ["dp", "sp"])
+def test_measure_throughput_replays_at_408x616(cuda, mode):
+    """The harness's point at 4 entries of this card: its warm-up call
+    captures and every timed call replays the one graph."""
+    _build.reset_launch_counts()
+    (pt,) = par.measure_throughput(408, 616, device_counts=[4], repeats=2,
+                                   mode=mode, devices=[cuda] * 4)
+    torch.cuda.synchronize()
+    assert _build.graph_replays() == 3
+    assert pt.mesh_shape == ((4, 1) if mode == "dp" else (1, 4))
+    assert pt.pairs_per_second > 0 and pt.oversubscribed
+
+
+def test_profile_match_replays_one_graph_per_stage(cuda):
+    """profile_match's stages (the build, each level, each upsample) as
+    chained graphs: bit-equal to the eager match with its launch counts,
+    on the capture and on a replay of another scene, the breakdown's
+    keys those of the eager profile."""
+    cfg = MatcherConfig(fovea_level=3)
+    n = cfg.num_levels(GH, GW)
+    for gate in (None, 0):
+        eng = StereoEngine(cfg, device="cuda", resident_max_pixels=gate)
+        for seed in (0, 3):
+            inputs = scene.make_pair(GH, GW, seed=seed)
+            ref, want, _, _, _ = counted(
+                lambda: eager_call(cuda, "match", cfg, gate, inputs))
+            (res, prof), got, _, syncs, replays = counted(
+                lambda: eng.profile_match(*inputs))
+            assert_bits(res.triplet, ref)
+            assert got == want and syncs == 0 and replays == 2 * n
+            assert sorted(prof["levels"]) == [f"level_{i:02d}"
+                                              for i in range(n)]
+            assert "upsample_s" not in prof["levels"]["level_00"]
+        assert len(eng.graphs) == 2 * n
+        assert sum(k[0] == "prof_level" for k in eng.graphs) == n
+
+
+def test_dp_mesh_across_two_cards_replays_a_graph_per_card(cuda):
+    """Two cards: a dp mesh replays one graph on each card and returns the
+    batch on card 0, equal to match per pair; a rows-group across the
+    two cards runs eagerly and says so.  Skips with one card."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards")
+    cards = [torch.device("cuda", k) for k in range(2)]
+    eng = StereoEngine(MatcherConfig(fovea_level=3), device=cards[0])
+    for seed in (0, 7):
+        raw, _ = batch_on(cards[0], 3, seed)
+        out, _, _, _, replays = counted(lambda: eng.match_batch(
+            *raw, mesh=par.make_mesh(2, 1, devices=cards)).triplet)
+        assert replays == 2 and eng.metrics["match_batch_route"] == "graph"
+        assert out.device == cards[0]
+        for i in range(3):
+            assert_bits(out[:, i], eng.match(raw[0][i], raw[1][i]).triplet)
+    rows = eng.match_batch(raw[0][:1], raw[1][:1],
+                           mesh=par.make_mesh(1, 2, devices=cards))
+    assert eng.metrics["match_batch_route"] == "eager"
+    assert_bits(rows.triplet[:, 0], eng.match(raw[0][0], raw[1][0]).triplet)

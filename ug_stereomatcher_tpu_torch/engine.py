@@ -15,23 +15,27 @@ runs every stencil and gather as a hand-written CUDA kernel,
 ``device="cpu"`` runs their plain PyTorch versions.  There is no fallback
 from one to the other.
 
-On the card ``match``, ``match_foveated``, ``match_hierarchical`` and
-``match_batch`` without a mesh (and so ``warmup``,
-``match_with_consistency`` and ``get_disparities``) run compiled once,
-as the JAX engine's ``_jitted`` cache runs them: the first call at a key
-(``graphs.graph_key``: entry point, shape, config and
-``resident_max_pixels``) captures the eager call as a CUDA graph, which
-every later call at that key replays (graphs.py).  The graphs live on
-the engine (``graphs``) and go with it.  A capture that fails raises.
-``profile_match`` and the mesh route stay eager, and so does the CPU
-engine; the module functions (``match.match_pyramid``,
-``match.match_foveated_pair``, ``parallel.batch.make_batch_matcher``)
-are the eager path on any device.
+On the card every entry point runs compiled once, as the JAX engine's
+``_jitted`` cache runs them: ``match``, ``match_foveated`` and
+``match_hierarchical`` (and so ``warmup``, ``match_with_consistency``
+and ``get_disparities``) capture the eager call as a CUDA graph at the
+first call of a key (``graphs.graph_key``: entry point, shape, config and
+``resident_max_pixels``), which every later call at that key replays
+(graphs.py); ``match_batch`` keeps one batch matcher per mesh and
+``foveated`` (``matchers``), which replays one graph per batch shape and
+card (parallel/batch.py; only a rows-group across several cards runs
+eagerly); ``profile_match`` replays one graph per stage.  The graphs
+live on the engine and go with it.  A capture that fails raises.  The
+CPU engine captures nothing; the module functions
+(``match.match_pyramid``, ``match.match_foveated_pair``,
+``parallel.batch.make_batch_matcher(..., capture=False)``) are the eager
+path on any device.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import threading
 import time
 from typing import Callable, Dict, Optional, Sequence, Tuple
@@ -147,8 +151,12 @@ class StereoEngine:
     applies to ``match``, ``match_foveated`` and ``match_hierarchical``;
     ``match_batch`` keeps the default gate.
     * ``graphs``: on the card, the captured calls by key
-      (graphs.graph_key -> graphs.CapturedCall), the counterpart of the
-      JAX engine's ``_cache``; empty on the CPU.
+      (graphs.graph_key -> graphs.CapturedCall, and profile_match's
+      stage keys), the counterpart of the JAX engine's ``_cache``; empty
+      on the CPU.
+    * ``matchers``: match_batch's batch matchers by (mesh key,
+      ``foveated``) (parallel.batch.BatchMatcher, each with its graphs);
+      ``metrics["match_batch_route"]`` names the route of the last batch.
     """
 
     def __init__(self, config: Optional[MatcherConfig] = None,
@@ -161,23 +169,31 @@ class StereoEngine:
         self.timings = Timings()
         self.metrics: Dict[str, object] = {}
         self.graphs: Dict[tuple, CapturedCall] = {}
+        self.matchers: Dict[tuple, object] = {}
         self._graphs_lock = threading.Lock()
+        self._profile_lock = threading.Lock()
+
+    def _graph(self, key: tuple, impl: Callable[..., object],
+               inputs: Sequence) -> CapturedCall:
+        """The engine's captured call of ``key``, made at its first use
+        (``inputs``: CapturedCall's shapes or static tensors)."""
+        with self._graphs_lock:
+            call = self.graphs.get(key)
+            if call is None:
+                call = self.graphs[key] = CapturedCall(impl, inputs,
+                                                       self.device)
+        return call
 
     def _run(self, entry: str, impl: Callable[..., object],
-             sources: Sequence[torch.Tensor], foveated: bool = False):
+             sources: Sequence[torch.Tensor]):
         """``impl`` on float32 copies of ``sources`` (channels-first views
         on the engine's device): eagerly on the CPU; on the card through
         the CUDA graph of its key, captured at the key's first call."""
         if self.device.type != "cuda":
             return impl(*(x.to(DTYPE).contiguous() for x in sources))
         key = graph_key(entry, sources[0].shape, self.config,
-                        self.resident_max_pixels, foveated)
-        with self._graphs_lock:
-            call = self.graphs.get(key)
-            if call is None:
-                call = self.graphs[key] = CapturedCall(
-                    impl, [x.shape for x in sources], self.device)
-        return call(*sources)
+                        self.resident_max_pixels)
+        return self._graph(key, impl, [x.shape for x in sources])(*sources)
 
     def _record(self, name: str, t0: float, devices=None) -> None:
         for dev in devices or [self.device]:
@@ -256,14 +272,24 @@ class StereoEngine:
         equals ``match`` (``match_foveated``) per pair bit for bit.  On a
         mesh that spans processes (parallel.pod_mesh) every rank passes the
         same batch, matches its own groups' pairs and gets the whole
-        result on its first local device.  Without a mesh the card
-        replays one CUDA graph per batch shape and ``foveated``; a mesh
-        runs eagerly."""
+        result on its first local device.  The engine keeps one batch
+        matcher per mesh key and ``foveated`` (parallel.mesh.mesh_key), as
+        the JAX engine caches its jitted matcher per shape and mesh
+        (engine.py:383-390): on the card it replays one CUDA graph per
+        batch shape and card, except for a rows-group whose rows lie on
+        more than one card, which runs eagerly;
+        ``metrics["match_batch_route"]`` says which ran."""
         from ug_stereomatcher_tpu_torch.parallel.batch import (
             make_batch_matcher)
+        from ug_stereomatcher_tpu_torch.parallel.mesh import mesh_key
 
         t0 = time.perf_counter()
-        fn = make_batch_matcher(self.config, mesh, self.device, foveated)
+        key = (mesh_key(mesh), bool(foveated))
+        with self._graphs_lock:
+            fn = self.matchers.get(key)
+            if fn is None:
+                fn = self.matchers[key] = make_batch_matcher(
+                    self.config, mesh, self.device, foveated)
         dev = self.device if mesh is None else mesh.local_devices()[0]
         lb = _on_device(left_batch, dev, 4)
         rb = _on_device(right_batch, dev, 4)
@@ -273,10 +299,8 @@ class StereoEngine:
         h, w = lb.shape[-2:]
         if foveated:
             _check_fovea(self.config, h, w)
-        if mesh is None:
-            out = self._run("match_batch", fn, (lb, rb), foveated)
-        else:
-            out = fn(lb.to(DTYPE).contiguous(), rb.to(DTYPE).contiguous())
+        out = fn(lb, rb)
+        self.metrics["match_batch_route"] = fn.route
         self._record("match_batch", t0,
                      None if mesh is None else mesh.local_devices())
         if foveated:
@@ -295,9 +319,18 @@ class StereoEngine:
         completion time (the reference's per-level logs,
         MatchGPULib.cpp:1265-1269, and excutionTime buckets, :1108-1117).
         The syncs serialise the host and the device: use it for analysis,
-        not serving.  It runs eagerly on every device (no CUDA graph), and
-        its result equals :meth:`match`'s bit for bit (the gate
-        ``resident_max_pixels`` included).
+        not serving.  Its result equals :meth:`match`'s bit for bit (the
+        gate ``resident_max_pixels`` included).
+
+        On the card each stage replays its own CUDA graph, as the JAX
+        engine jits each stage (engine.py:434, :449, :461), keyed as
+        there (``("prof_build", h, w, cfg)``, ``("prof_level", i, dims,
+        cfg)`` with whether the level is the coarsest, ``("prof_up",
+        dims, out dims, cfg)``) plus ``resident_max_pixels``; a stage's
+        first call captures it, inside its bucket.  The stages chain: a
+        level or upsample graph reads the previous stage's static outputs
+        in place, so no stage copies or clones a pyramid; the result is
+        cloned after the last stage.  The CPU runs the stages eagerly.
 
         Returns ``(MatchResult, breakdown)``, the breakdown with the JAX
         package's keys (``pyramid_build_s``, ``levels.level_XX.{match_s,
@@ -305,39 +338,69 @@ class StereoEngine:
         ``total_s``; ``iterations`` is the level's schedule), and stores
         it at ``self.metrics["profile"]``."""
         cfg = self.config
+        gate = self.resident_max_pixels
+        on_card = self.device.type == "cuda"
 
-        def sync():
-            if self.device.type == "cuda":
-                torch.cuda.synchronize(self.device)
+        def stage(key, fn, spec, *sources):
+            """One stage to its completion, ``(outputs, seconds)``: eager
+            on the CPU; on the card the replay of its graph, whose static
+            inputs are ``spec`` (shapes, or another stage's outputs)."""
+            if not on_card:
+                t0 = time.perf_counter()
+                out = fn(*sources)
+                return ((out,) if isinstance(out, torch.Tensor) else out,
+                        time.perf_counter() - t0)
+            call = self._graph(key + (gate,), fn, spec)
+            call.load(*sources)
+            t0 = time.perf_counter()
+            out = call.replay()
+            torch.cuda.synchronize(self.device)
+            return out, time.perf_counter() - t0
 
         t_all = time.perf_counter()
         left, right, (h, w) = self._pair(left, right)
         left, right = (x.to(DTYPE).contiguous() for x in (left, right))
         n = cfg.num_levels(h, w)
         dims = match_mod.level_dims_for_matching(cfg, h, w, n, False)
-        t0 = time.perf_counter()
-        lp, rp = pyr.build_pyramid_pair(left, right, cfg, n)
-        sync()
-        build_s = time.perf_counter() - t0
+
+        def build(lft, rgt):
+            lp, rp = pyr.build_pyramid_pair(lft, rgt, cfg, n)
+            return tuple(lp) + tuple(rp)
+
+        def level(i):
+            def run(lft, rgt, disp=None):
+                if disp is None:   # the coarsest level starts from zeros
+                    disp = torch.zeros((3,) + tuple(dims[i]),
+                                       dtype=lft.dtype, device=lft.device)
+                return match_mod.match_level(
+                    lft, rgt, disp, i, cfg, is_coarsest=(i == n - 1),
+                    resident_max_pixels=gate)
+            return run
 
         levels: Dict[str, Dict[str, float]] = {}
-        disp = torch.zeros((3,) + tuple(dims[n - 1]), dtype=left.dtype,
-                           device=left.device)
-        for i in range(n - 1, -1, -1):
-            t0 = time.perf_counter()
-            disp = match_mod.match_level(
-                lp[i], rp[i], disp, i, cfg, is_coarsest=(i == n - 1),
-                resident_max_pixels=self.resident_max_pixels)
-            sync()
-            lvl = {"match_s": round(time.perf_counter() - t0, 6),
-                   "height": dims[i][0], "width": dims[i][1],
-                   "iterations": cfg.iters_for_level(i)}
-            if i > 0:
-                t0 = time.perf_counter()
-                disp = pyr.upsample_to_level(disp, *dims[i - 1], cfg)
-                sync()
-                lvl["upsample_s"] = round(time.perf_counter() - t0, 6)
-            levels[f"level_{i:02d}"] = lvl
+        with self._profile_lock:   # the stages' static buffers
+            pyramid, build_s = stage(("prof_build", h, w, cfg), build,
+                                     [left.shape, right.shape], left, right)
+            disp = ()
+            for i in range(n - 1, -1, -1):
+                ins = (pyramid[i], pyramid[n + i]) + tuple(disp)
+                disp, match_s = stage(
+                    ("prof_level", i, dims[i], cfg, i == n - 1), level(i),
+                    ins, *ins)
+                lvl = {"match_s": round(match_s, 6),
+                       "height": dims[i][0], "width": dims[i][1],
+                       "iterations": cfg.iters_for_level(i)}
+                if i > 0:
+                    h2, w2 = dims[i - 1]
+                    disp, up_s = stage(
+                        ("prof_up", dims[i], (h2, w2), cfg),
+                        functools.partial(pyr.upsample_to_level, out_h=h2,
+                                          out_w=w2, cfg=cfg), disp, *disp)
+                    lvl["upsample_s"] = round(up_s, 6)
+                levels[f"level_{i:02d}"] = lvl
+            (trip,) = disp
+            if on_card:   # the graph's buffer is overwritten by a replay
+                trip = trip.clone()
         breakdown = {
             "pyramid_build_s": round(build_s, 6),
             "levels": levels,
@@ -347,7 +410,7 @@ class StereoEngine:
             "total_s": round(time.perf_counter() - t_all, 6),
         }
         self.metrics["profile"] = breakdown
-        return MatchResult(disp[0], disp[1], disp[2]), breakdown
+        return MatchResult(trip[0], trip[1], trip[2]), breakdown
 
     def warmup(self, height: int, width: int, foveated: bool = False) -> None:
         """Run one match of a zero pair of this size (``foveated``: mode

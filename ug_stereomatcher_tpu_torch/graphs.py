@@ -27,6 +27,14 @@ capture refuses (a host read, a pageable copy, a synchronise) raises
 with the reason; nothing falls back to the eager path.  Each graph keeps
 its own memory pool alive for as long as it lives (about an eager call's
 peak), and a graph replays on the device it was captured on.
+
+Who captures: the engine's single-device entry points (engine.py), the
+batch matcher (parallel/batch.py: one graph per batch shape and card, so
+a mesh replays one graph on each card it covers; a rows-group that
+spans several cards is the one route that stays eager) and
+``profile_match``'s stages, which chain: a stage's static inputs are the
+previous stage's static outputs, read in place (``load`` copies nothing
+for them) and never cloned.
 """
 
 from __future__ import annotations
@@ -34,7 +42,7 @@ from __future__ import annotations
 import collections
 import threading
 import time
-from typing import Callable, Optional, Sequence, Tuple
+from typing import Callable, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -57,21 +65,27 @@ def graph_key(entry: str, shape: Sequence[int], config,
 class CapturedCall:
     """One entry point's call at one key, as a CUDA graph.
 
-    ``fn(*inputs)`` takes float32 tensors of ``shapes`` on ``device`` and
-    returns a tensor or a tuple of tensors; it may allocate and launch
-    kernels, but not read anything back to the host.  The first call
-    captures (``capture_s`` its seconds: warm-up, capture and
-    instantiation); every call returns fresh tensors."""
+    ``fn(*inputs)`` takes float32 tensors on ``device`` and returns a
+    tensor or a tuple of tensors; it may allocate and launch kernels, but
+    not read anything back to the host.  ``inputs`` gives each static
+    input as a shape (a buffer of its own, filled by ``load``) or as a
+    tensor on ``device`` that is the static input itself (another graph's
+    static output, which a chain of stages reads in place).  The first
+    replay captures (``capture_s`` its seconds: warm-up, capture and
+    instantiation); a call returns fresh tensors."""
 
     def __init__(self, fn: Callable[..., object],
-                 shapes: Sequence[Sequence[int]], device: torch.device):
+                 inputs: Sequence[Union[Sequence[int], torch.Tensor]],
+                 device: torch.device):
         self.fn = fn
         self.device = torch.device(device)
         if self.device.type != "cuda":
             raise ValueError(f"a CUDA graph needs a CUDA device, got "
                              f"{self.device}")
-        self.inputs = tuple(torch.empty(tuple(s), dtype=torch.float32,
-                                        device=self.device) for s in shapes)
+        self.inputs = tuple(
+            x if isinstance(x, torch.Tensor) else
+            torch.empty(tuple(x), dtype=torch.float32, device=self.device)
+            for x in inputs)
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self.outputs: Tuple[torch.Tensor, ...] = ()
         self.single = False
@@ -95,9 +109,12 @@ class CapturedCall:
         launches = collections.Counter()
         iterations = match_mod.IterationCounts()
         try:
+            # a capture stream on this device: torch.cuda.graph's default
+            # is one stream for the process, on the first device it met
             with _build.counting_into(launches), \
                     match_mod.counting_iterations_into(iterations), \
-                    torch.cuda.graph(graph, capture_error_mode="thread_local"):
+                    torch.cuda.graph(graph, stream=side,
+                                     capture_error_mode="thread_local"):
                 out = self.fn(*self.inputs)
         except Exception as exc:
             raise RuntimeError(f"CUDA graph capture failed: {exc}") from exc
@@ -109,20 +126,35 @@ class CapturedCall:
         # the graph and its pool go with the engine without a GC pass
         self.fn = None
 
-    def __call__(self, *sources: torch.Tensor):
-        """Copy ``sources`` (tensors on the device, each broadcastable to
-        its static input; the copy casts) into the static inputs, replay,
-        and return clones of the outputs."""
+    def load(self, *sources: torch.Tensor) -> None:
+        """Copy ``sources`` (tensors on any CUDA device, each broadcastable
+        to its static input; the copy casts) into the static inputs, on
+        the current streams; a source that is its static input is not
+        copied."""
         if len(sources) != len(self.inputs):
             raise ValueError(f"expected {len(self.inputs)} inputs, got "
                              f"{len(sources)}")
-        with self._lock, torch.cuda.device(self.device):
+        with torch.cuda.device(self.device):
             for static, src in zip(self.inputs, sources):
-                static.copy_(src)
+                if src is not static:
+                    static.copy_(src)
+
+    def replay(self) -> Tuple[torch.Tensor, ...]:
+        """Replay on the device's current stream (capturing at the first
+        call) and add the capture's counts; returns the static outputs,
+        which the next replay overwrites.  The host does not wait."""
+        with torch.cuda.device(self.device):
             if self.graph is None:
                 self._capture()
             self.graph.replay()
-            _build.record_replay(self.launches)
-            match_mod.add_iterations(self.iterations)
-            out = tuple(t.clone() for t in self.outputs)
+        _build.record_replay(self.launches)
+        match_mod.add_iterations(self.iterations)
+        return self.outputs
+
+    def __call__(self, *sources: torch.Tensor):
+        """``load(*sources)``, replay, and clones of the outputs."""
+        with self._lock:
+            self.load(*sources)
+            with torch.cuda.device(self.device):
+                out = tuple(t.clone() for t in self.replay())
         return out[0] if self.single else out

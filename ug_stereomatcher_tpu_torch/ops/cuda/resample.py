@@ -21,9 +21,11 @@ an ``ops.resample.ScaleMap`` (every call of the pyramid and the
 upsamples) the taps are constants of the call site, as XLA folds them
 into the JAX package's executable: one device copy per (device, method,
 output size, source size, map, window) is computed and uploaded at its
-first call and kept for the process (``device_taps``; a few KB each), so
-a later call, and a CUDA graph captured over it, reads them with no host
-work and no host-to-device copy.  Any other map computes and uploads its
+first call and kept for the process (``device_taps`` through
+``kept_taps``, which the row-sharded resample of parallel/spatial.py
+uses for each shard's taps too; a few KB each), so a later call, and a
+CUDA graph captured over it, reads them with no host work and no
+host-to-device copy.  Any other map computes and uploads its
 taps per call, which a capture refuses.  The bilinear form uses these
 host taps on every level.  The JAX package sends small levels to its
 float32 ``tex_gather`` instead (pyramid.py:39-54), a size gate that exists
@@ -36,7 +38,7 @@ relative; tests/test_torch_kernels.py).
 from __future__ import annotations
 
 import functools
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -184,34 +186,40 @@ def host_taps(method: str, out_h: int, out_w: int, h: int, w: int,
     return iy, ix, wy, wx
 
 
-# (device, method, out_h, out_w, h, w, map, row_off, col_off) -> the taps
-# on that device; never evicted: a CUDA graph may read them
+# (device, call-site key) -> the taps on that device; never evicted: a
+# CUDA graph may read them
 _DEVICE_TAPS: Dict[tuple, List[torch.Tensor]] = {}
+
+
+def kept_taps(dev: torch.device, key: tuple,
+              make: Callable[[], Sequence[np.ndarray]]) -> List[torch.Tensor]:
+    """The host taps ``make()`` gives for a call site's ``key``, on
+    ``dev``: computed and uploaded at the first call of (dev, key), the
+    same tensors on every later one.  A first call inside a CUDA graph
+    capture raises: a pageable host-to-device copy cannot be captured (a
+    graph's warm-up call fills the cache before it captures)."""
+    full = (dev,) + tuple(key)
+    taps = _DEVICE_TAPS.get(full)
+    if taps is None:
+        if dev.type == "cuda" and torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                f"resample: the taps of {tuple(key)} are not on the card "
+                f"yet, and a CUDA graph cannot capture their upload")
+        taps = upload_taps(dev, make())
+        if dev.type == "cuda":
+            # the copy is done before any stream reads the kept taps
+            torch.cuda.current_stream(dev).synchronize()
+        # the first copy kept wins: a graph may already read it
+        taps = _DEVICE_TAPS.setdefault(full, taps)
+    return taps
 
 
 def device_taps(dev: torch.device, method: str, out_h: int, out_w: int,
                 h: int, w: int, coord_of: ScaleMap, row_off: int = 0,
                 col_off: int = 0) -> List[torch.Tensor]:
-    """``host_taps`` on ``dev``, computed and uploaded at the first call of
-    this key and the same tensors on every later one.  A first call inside
-    a CUDA graph capture raises: a pageable host-to-device copy cannot be
-    captured (the engine's warm-up call fills the cache before it
-    captures)."""
-    key = (dev, method, out_h, out_w, h, w, coord_of, row_off, col_off)
-    taps = _DEVICE_TAPS.get(key)
-    if taps is None:
-        if dev.type == "cuda" and torch.cuda.is_current_stream_capturing():
-            raise RuntimeError(
-                f"resample_tex: the taps of {key[1:]} are not on the card "
-                f"yet, and a CUDA graph cannot capture their upload")
-        taps = upload_taps(dev, host_taps(method, out_h, out_w, h, w,
-                                          coord_of, row_off, col_off))
-        if dev.type == "cuda":
-            # the copy is done before any stream reads the kept taps
-            torch.cuda.current_stream(dev).synchronize()
-        # the first copy kept wins: a graph may already read it
-        taps = _DEVICE_TAPS.setdefault(key, taps)
-    return taps
+    """``host_taps`` on ``dev``, kept per call site (``kept_taps``)."""
+    args = (method, out_h, out_w, h, w, coord_of, row_off, col_off)
+    return kept_taps(dev, args, lambda: host_taps(*args))
 
 
 def resample_tex(img: torch.Tensor, out_h: int, out_w: int, coord_of: CoordFn,

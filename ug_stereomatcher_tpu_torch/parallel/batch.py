@@ -1,11 +1,11 @@
-"""Pair-batch matching over a mesh (modes 1 and 2).
+"""Pair-batch matching over a mesh (modes 1 and 2), compiled once.
 
 Counterpart of ``ug_stereomatcher_tpu/parallel/batch.py``.  With no mesh
 the pairs run in turn on one device.  On a mesh, pair i goes to
 pairs-group i mod P: with one row per group it runs whole on the group's
 device, with more rows the group row-shards it over its rows axis
 (spatial.sharded_match_pair), so the hybrid takes the batch in chunks of
-P pairs.  An eager step has no fixed batch shape, so a short last chunk
+P pairs.  A batch has no fixed chunking here, so a short last chunk
 leaves groups idle instead of padding them with copies of its last pair,
 as the JAX package must.
 
@@ -17,11 +17,29 @@ passes the same global array: each rank matches the pairs of the groups
 it drives, so a pair goes to the same group whatever the number of
 processes, and an all-gather gives every rank the whole result on its
 first device.
+
+Compile once, replay (graphs.py), as each JAX matcher is one jitted
+program (batch.py:65-170): on the card the matcher keeps one CUDA graph
+per key (``graphs.graph_key`` of the batch shape, config and
+``foveated``, plus ``mesh.mesh_key``) and card, captured at the key's
+first call.  Without a mesh that is the pairs in turn on ``device``.  On
+a mesh, the pairs this process matches whose pairs-group lies on one
+card go into that card's graph (``card_plan``): the whole
+sharded_match_pair of each, its halo copies and replicated stages
+included, becomes graph nodes.  The copies of the inputs onto each card
+and of the results onto the mesh's first device, and the all-gather
+across processes, stay outside the graphs; every card's graph is
+replayed before any result is copied back, so the cards run together.
+A pairs-group whose rows lie on more than one card is the one case that
+runs eagerly (a graph belongs to one device; ROADMAP item 14), and the
+matcher's ``route`` names what its last call ran.  CPU devices capture
+nothing.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Optional
+import threading
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -29,13 +47,18 @@ import torch.distributed as dist
 from ug_stereomatcher_tpu_torch import match as match_mod
 from ug_stereomatcher_tpu_torch import pyramid as pyr
 from ug_stereomatcher_tpu_torch.config import MatcherConfig, check_supported
-from ug_stereomatcher_tpu_torch.parallel.mesh import Mesh, process_index
-from ug_stereomatcher_tpu_torch.parallel.spatial import (
-    on_device,
-    sharded_match_pair,
+from ug_stereomatcher_tpu_torch.device import DTYPE
+from ug_stereomatcher_tpu_torch.graphs import CapturedCall, graph_key
+from ug_stereomatcher_tpu_torch.parallel.mesh import (
+    Mesh,
+    mesh_key,
+    process_index,
 )
-
-BatchMatcher = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
+from ug_stereomatcher_tpu_torch.parallel.spatial import (
+    _sharded_match_pair,
+    on_device,
+    warn_fixed_schedule,
+)
 
 
 def _single_pair(left: torch.Tensor, right: torch.Tensor,
@@ -64,30 +87,195 @@ def _single_pair_foveated(left: torch.Tensor, right: torch.Tensor,
     return _stack_fovea_levels(levels, cfg.fovea_level)
 
 
+def card_plan(mesh: Mesh, batch: int, rank: int
+              ) -> Tuple[Dict[torch.device, List[int]], List[int]]:
+    """How process ``rank`` matches its pairs of a ``batch`` on ``mesh``:
+    by CUDA card, the pairs whose pairs-group lies on that one card (one
+    graph a card, pairs in batch order), and the pairs it matches
+    eagerly, whose group's rows lie on more than one card or on the CPU.
+    Pair i goes to group i mod P; the pairs of the groups other
+    processes drive are in neither."""
+    p = mesh.shape["pairs"]
+    cards: Dict[torch.device, List[int]] = {}
+    eager: List[int] = []
+    for i in range(batch):
+        if mesh.owner(i % p) != rank:
+            continue
+        devs = set(mesh.devices[i % p])
+        card = devs.pop() if len(devs) == 1 else None
+        if card is not None and card.type == "cuda":
+            cards.setdefault(card, []).append(i)
+        else:
+            eager.append(i)
+    return cards, eager
+
+
+def _as_input(x: torch.Tensor, dev: torch.device) -> torch.Tensor:
+    """One image as the kernels take it: float32, contiguous, on dev."""
+    return x.to(dev, DTYPE).contiguous()
+
+
+def _take(x: torch.Tensor, idx: List[int]) -> torch.Tensor:
+    """The pairs ``idx`` of a batch, stacked (``x`` itself for all)."""
+    if idx == list(range(x.shape[0])):
+        return x
+    return torch.stack([x[i] for i in idx])
+
+
 def make_batch_matcher(cfg: MatcherConfig, mesh: Optional[Mesh] = None,
-                       device=None, foveated: bool = False) -> BatchMatcher:
+                       device=None, foveated: bool = False,
+                       capture: bool = True) -> "BatchMatcher":
     """A batch matcher (B, 3, H, W) x 2 -> (B, 3, H, W) float32 triplets,
     or with ``foveated=True`` -> (B, 3, fovea_level * fh, fw) stacked
-    fovea triplets (mode 2).
+    fovea triplets (mode 2); the inputs may be of any dtype (uint8
+    images are cast on their card).
 
     Without a mesh the pairs run in turn on ``device``; on a mesh pair i
     goes to pairs-group i mod P, whole where ``rows == 1`` and row-sharded
     otherwise.  A mesh that spans processes needs the default process
     group (multihost.initialize_distributed) over exactly its ranks, and
-    every rank calls the matcher with the same batch."""
+    every rank calls the matcher with the same batch.  On the card the
+    matcher replays one CUDA graph per batch shape and card (the module
+    docstring); ``capture=False`` runs the eager module path, the
+    reference the graphs are held against."""
     check_supported(cfg)
-    single = _single_pair_foveated if foveated else _single_pair
-    if mesh is None:
-        dev = torch.device(device if device is not None else "cuda")
+    return BatchMatcher(cfg, mesh, device, foveated, capture)
 
+
+class BatchMatcher:
+    """The callable ``make_batch_matcher`` returns.
+
+    * ``graphs``: key -> {card: graphs.CapturedCall}, the graphs it
+      captured (each holds its memory pool while the matcher lives);
+    * ``route``: what the last call ran: ``"graph"``, ``"eager"``, or
+      ``"graph+eager"`` where a mesh has groups of both kinds."""
+
+    def __init__(self, cfg: MatcherConfig, mesh: Optional[Mesh], device,
+                 foveated: bool, capture: bool):
+        self.cfg, self.mesh, self.foveated = cfg, mesh, foveated
+        self.capture = capture
+        self.graphs: Dict[tuple, Dict[torch.device, CapturedCall]] = {}
+        self.route: Optional[str] = None
+        self._lock = threading.RLock()
+        self._single = _single_pair_foveated if foveated else _single_pair
+        if mesh is None:
+            self.device = torch.device(device if device is not None
+                                       else "cuda")
+            return
+        ranks = mesh.process_indices()
+        world = len(ranks)
+        group = dist.is_available() and dist.is_initialized()
+        if world > 1 and not group:
+            raise RuntimeError(
+                f"the mesh spans processes {ranks} but no torch.distributed "
+                f"process group is initialised "
+                f"(multihost.initialize_distributed)")
+        if world > 1 and ranks != list(range(dist.get_world_size())):
+            raise ValueError(f"the mesh spans processes {ranks}, the process "
+                             f"group ranks 0..{dist.get_world_size() - 1}: "
+                             f"every rank must drive a pairs-group")
+        self._ranks = ranks
+        # a one-rank group gathers too; a mesh of one rank of a larger
+        # group is that rank's own
+        self._gathers = group and ranks == list(range(dist.get_world_size()))
+        self._me = ranks.index(process_index()) if world > 1 else 0
+        self._on_group = _group_matcher(cfg, mesh, foveated)
+        self.device = mesh.local_devices()[0]
+
+    def __call__(self, lb: torch.Tensor, rb: torch.Tensor) -> torch.Tensor:
+        if self.mesh is None:
+            return self._in_turn(lb, rb)
+        return self._on_mesh(lb, rb)
+
+    def key(self, shape) -> tuple:
+        """The graph key of a batch of ``shape``: graph_key of the entry,
+        shape, config and ``foveated``, plus the mesh key."""
+        return graph_key("match_batch", shape, self.cfg, None,
+                         self.foveated) + (mesh_key(self.mesh),)
+
+    def _call_on(self, card: torch.device, shape, fn) -> CapturedCall:
+        """The card's graph of the batch shape ``shape`` (made at the
+        key's first call); ``fn`` is the call it captures."""
+        with self._lock:
+            calls = self.graphs.setdefault(self.key(shape), {})
+            if card not in calls:
+                calls[card] = CapturedCall(fn, [shape, shape], card)
+            return calls[card]
+
+    def _pairs_on(self, dev: torch.device):
+        """``(lb, rb) ->`` the pairs in turn on ``dev``, stacked."""
         def in_turn(lb, rb):
             with on_device(dev):
                 return torch.stack([
-                    single(lb[i].to(dev), rb[i].to(dev), cfg)
-                    for i in range(lb.shape[0])])
+                    self._single(_as_input(lb[i], dev), _as_input(rb[i], dev),
+                                 self.cfg) for i in range(lb.shape[0])])
         return in_turn
-    return _make_mesh_matcher(cfg, mesh, _group_matcher(cfg, mesh, foveated),
-                              foveated)
+
+    def _in_turn(self, lb, rb):
+        dev = self.device
+        if self.capture and dev.type == "cuda":
+            self.route = "graph"
+            return self._call_on(dev, tuple(lb.shape),
+                                 self._pairs_on(dev))(lb, rb)
+        self.route = "eager"
+        return self._pairs_on(dev)(lb, rb)
+
+    def _card_fn(self, card: torch.device, idx: List[int]):
+        """``(lc, rc) ->`` the pairs ``idx`` (stacked in lc, rc on
+        ``card``) each through its group, stacked on the card."""
+        p = self.mesh.shape["pairs"]
+
+        def on_card(lc, rc):
+            return torch.stack([self._on_group(lc[k], rc[k], i % p, card)
+                                for k, i in enumerate(idx)])
+        return on_card
+
+    def _on_mesh(self, lb, rb):
+        """Each process matches the pairs of the groups it drives, in batch
+        order, into a float32 share padded to the largest process's
+        share; an all-gather of the shares, sliced back, puts every pair
+        in its place on every rank.  No pair is matched twice.  A mesh
+        with one owner is that process's own: its share is the whole
+        batch, and it gathers only where the process group has no other
+        rank (a one-rank group)."""
+        mesh, cfg = self.mesh, self.cfg
+        b, _, h, w = lb.shape
+        p = mesh.shape["pairs"]
+        owned = [[i for i in range(b) if mesh.owner(i % p) == r]
+                 for r in self._ranks]
+        share = torch.empty((max(len(o) for o in owned),)
+                            + _result_shape(cfg, h, w, self.foveated),
+                            dtype=torch.float32, device=self.device)
+        at = {i: j for j, i in enumerate(owned[self._me])}
+        if self.capture:
+            cards, eager = card_plan(mesh, b, self._ranks[self._me])
+        else:
+            cards, eager = {}, owned[self._me]
+        if cfg.early_exit_delta is not None and mesh.shape["rows"] > 1:
+            warn_fixed_schedule(stacklevel=4)
+        with self._lock:   # the static buffers of the graphs
+            shape = tuple(lb.shape)
+            calls = [(self._call_on(card, (len(idx),) + shape[1:],
+                                    self._card_fn(card, idx)), idx)
+                     for card, idx in cards.items()]
+            for call, idx in calls:
+                call.load(_take(lb, idx), _take(rb, idx))
+            # every card's replay before any copy back: the cards overlap
+            outs = [call.replay() for call, _ in calls]
+            for (_, idx), (out,) in zip(calls, outs):
+                for k, i in enumerate(idx):
+                    share[at[i]].copy_(out[k])
+        for i in eager:
+            share[at[i]] = self._on_group(lb[i], rb[i], i % p, self.device)
+        self.route = ("graph+eager" if cards and eager
+                      else "graph" if cards else "eager")
+        parts = _all_gather(share) if self._gathers else share[None]
+        if len(self._ranks) == 1:
+            return parts[0]
+        out = share.new_empty((b,) + tuple(share.shape[1:]))
+        for r, idx in enumerate(owned):
+            out[idx] = parts[r, :len(idx)]
+        return out
 
 
 GroupMatcher = Callable[[torch.Tensor, torch.Tensor, int, torch.device],
@@ -98,21 +286,25 @@ def _group_matcher(cfg: MatcherConfig, mesh: Mesh,
                    foveated: bool) -> GroupMatcher:
     """``(left, right, g, out) ->`` one pair's result on device ``out``,
     matched by pairs-group g: whole on the group's device where the mesh
-    has one row, else row-sharded over the group's rows axis."""
+    has one row, else row-sharded over the group's rows axis (without
+    sharded_match_pair's warning: the batch matcher warns once a
+    call)."""
     if mesh.shape["rows"] == 1:
         single = _single_pair_foveated if foveated else _single_pair
 
         def whole(left, right, g, out):
             dev = mesh.devices[g][0]
             with on_device(dev):
-                res = single(left.to(dev), right.to(dev), cfg)
+                res = single(_as_input(left, dev), _as_input(right, dev),
+                             cfg)
             return res.to(out)
         return whole
 
     def sharded(left, right, g, out):
         dev = mesh.devices[g][0]
-        levels = sharded_match_pair(left.to(dev), right.to(dev), cfg, mesh,
-                                    pair=g, foveated=foveated).levels
+        levels = _sharded_match_pair(_as_input(left, dev),
+                                     _as_input(right, dev), cfg, mesh,
+                                     pair=g, foveated=foveated).levels
         if foveated:
             k = cfg.fovea_level
             return _stack_fovea_levels([lv.gather(out) for lv in levels[:k]],
@@ -146,58 +338,14 @@ def _all_gather(x: torch.Tensor) -> torch.Tensor:
     return torch.stack(parts).to(x.device)
 
 
-def _make_mesh_matcher(cfg: MatcherConfig, mesh: Mesh,
-                       on_group: GroupMatcher,
-                       foveated: bool) -> BatchMatcher:
-    """Each process matches the pairs of the groups it drives, in batch
-    order, into a float32 share padded to the largest process's share; an
-    all-gather of the shares, sliced back, puts every pair in its place on
-    every rank.  No pair is matched twice.  A mesh with one owner is that
-    process's own: its share is the whole batch, and it gathers only where
-    the process group has no other rank (a one-rank group)."""
-    ranks = mesh.process_indices()
-    world = len(ranks)
-    group = dist.is_available() and dist.is_initialized()
-    if world > 1 and not group:
-        raise RuntimeError(
-            f"the mesh spans processes {ranks} but no torch.distributed "
-            f"process group is initialised (multihost.initialize_distributed)")
-    if world > 1 and ranks != list(range(dist.get_world_size())):
-        raise ValueError(f"the mesh spans processes {ranks}, the process "
-                         f"group ranks 0..{dist.get_world_size() - 1}: "
-                         f"every rank must drive a pairs-group")
-    # a one-rank group gathers too; a mesh of one rank of a larger group
-    # is that rank's own
-    gathers = group and ranks == list(range(dist.get_world_size()))
-    p = mesh.shape["pairs"]
-    me = ranks.index(process_index()) if world > 1 else 0
-    out_dev = mesh.local_devices()[0]
-
-    def matcher(lb, rb):
-        b, _, h, w = lb.shape
-        owned = [[i for i in range(b) if mesh.owner(i % p) == r]
-                 for r in ranks]
-        share = torch.empty((max(len(o) for o in owned),)
-                            + _result_shape(cfg, h, w, foveated),
-                            dtype=torch.float32, device=out_dev)
-        for j, i in enumerate(owned[me]):
-            share[j] = on_group(lb[i], rb[i], i % p, out_dev)
-        parts = _all_gather(share) if gathers else share[None]
-        if world == 1:
-            return parts[0]
-        out = share.new_empty((b,) + tuple(share.shape[1:]))
-        for r, idx in enumerate(owned):
-            out[idx] = parts[r, :len(idx)]
-        return out
-    return matcher
-
-
 def batch_match(left_batch: torch.Tensor, right_batch: torch.Tensor,
                 cfg: Optional[MatcherConfig] = None,
                 mesh: Optional[Mesh] = None, device=None,
                 foveated: bool = False) -> torch.Tensor:
     """Match a (B, 3, H, W) float32 batch of pairs; one-shot form of
-    make_batch_matcher.  Returns (B, 3, H, W) triplets, or (B, 3,
-    fovea_level * fh, fw) stacked fovea triplets with ``foveated=True``."""
+    make_batch_matcher, run eagerly (a capture would outlive its one
+    call).  Returns (B, 3, H, W) triplets, or (B, 3, fovea_level * fh,
+    fw) stacked fovea triplets with ``foveated=True``."""
     return make_batch_matcher(cfg or MatcherConfig(), mesh, device,
-                              foveated)(left_batch, right_batch)
+                              foveated, capture=False)(left_batch,
+                                                       right_batch)

@@ -155,6 +155,17 @@ class Mesh:
         return f"Mesh({self.shape}, {self.slots})"
 
 
+def mesh_key(mesh: Optional[Mesh]) -> Optional[tuple]:
+    """The cache key of a mesh, as the JAX engine's (engine.py:386-387):
+    its shape and every slot (device, process, id) in mesh order; None
+    for no mesh.  Equal meshes give equal keys; another slot order or
+    another device gives another key."""
+    if mesh is None:
+        return None
+    return (tuple(mesh.shape.items()),
+            tuple(s for row in mesh.slots for s in row))
+
+
 def make_mesh(n_pairs_axis: int = 1, n_rows_axis: Optional[int] = None,
               devices=None) -> Mesh:
     """Build a ('pairs', 'rows') mesh.

@@ -48,6 +48,7 @@ from ug_stereomatcher_tpu_torch.ops.cuda.direction import (
     fused_direction_update,
 )
 from ug_stereomatcher_tpu_torch.ops.cuda.resample import (
+    kept_taps,
     resample_static,
     resample_tex,
     upload_taps,
@@ -241,6 +242,35 @@ def sharded_blur(x, boundary: str, mesh: Mesh, pair: int = 0,
     return RowBlocks(x.height, shards=out)
 
 
+@functools.lru_cache(maxsize=4096)
+def _kept_shard_windows(*args) -> List[tuple]:
+    return _shard_windows(*args)
+
+
+def _shard_windows(method: str, out_h: int, out_w: int, in_h: int,
+                   in_w: int, coord_of: CoordFn, n: int) -> List[tuple]:
+    """For each of n output row shards: (lo, hi, host taps), the input
+    rows [lo, hi) its taps reach and its taps with the rows rebased to
+    them (nearest ``(iy, ix)``, bilinear ``(iy, ix, wy, wx)``)."""
+    if method == "bilinear":
+        (iy, wy), (ix, wx) = (bilinear_taps(out_h, in_h, coord_of),
+                              bilinear_taps(out_w, in_w, coord_of))
+        last = np.minimum(iy + 1, in_h - 1)   # the second tap's row
+    else:
+        iy = nearest_indices(out_h, in_h, coord_of)
+        ix = nearest_indices(out_w, in_w, coord_of)
+        wy = wx = None
+        last = iy
+    windows = []
+    for a, b in row_splits(out_h, n):
+        lo, hi = int(iy[a:b].min()), int(last[a:b].max()) + 1
+        taps = [(iy[a:b] - lo).astype(np.int32), ix]
+        if wy is not None:
+            taps += [wy[a:b], wx]
+        windows.append((lo, hi, taps))
+    return windows
+
+
 def sharded_resample(x, out_h: int, out_w: int, coord_of: CoordFn,
                      value_scale: float, cfg: MatcherConfig, mesh: Mesh,
                      pair: int = 0,
@@ -253,7 +283,10 @@ def sharded_resample(x, out_h: int, out_w: int, coord_of: CoordFn,
     reach, taken from whichever input blocks hold them, with its height
     taps rebased to that window: the same taps as the whole resample, so
     the result is its exact row slice.  Outputs too short to shard run
-    whole."""
+    whole.  A ScaleMap's shard taps are kept on each device per call site
+    (ops.cuda.resample.kept_taps), so a CUDA graph can capture the
+    resample; any other map uploads them per call, which a capture
+    refuses."""
     x = RowBlocks.of(x)
     devices = mesh.row_devices(pair)
     method = cfg.interp
@@ -261,24 +294,22 @@ def sharded_resample(x, out_h: int, out_w: int, coord_of: CoordFn,
         return replicated_stage(
             lambda t: resample_tex(t, out_h, out_w, coord_of, value_scale,
                                    method), mesh, x, pair=pair)
-    in_h, in_w = x.height, x.width
-    if method == "bilinear":
-        (iy, wy), (ix, wx) = (bilinear_taps(out_h, in_h, coord_of),
-                              bilinear_taps(out_w, in_w, coord_of))
-        last = np.minimum(iy + 1, in_h - 1)   # the second tap's row
-    else:
-        iy = nearest_indices(out_h, in_h, coord_of)
-        ix = nearest_indices(out_w, in_w, coord_of)
-        wy = wx = None
-        last = iy
+    args = (method, out_h, out_w, x.height, x.width, coord_of, len(devices))
+    kept = isinstance(coord_of, ScaleMap)
+    windows = (_kept_shard_windows if kept else _shard_windows)(*args)
     out = []
-    for (a, b), dev in zip(row_splits(out_h, len(devices)), devices):
-        lo, hi = int(iy[a:b].min()), int(last[a:b].max()) + 1
-        taps = [(iy[a:b] - lo).astype(np.int32), ix]
-        if wy is not None:
-            taps += [wy[a:b], wx]
+    for k, ((lo, hi, taps), dev) in enumerate(zip(windows, devices)):
         with on_device(dev):
-            iy_k, ix_k, *weights = upload_taps(dev, taps)
+            if kept:
+                iy_k, ix_k, *weights = kept_taps(
+                    dev, ("row_shard", k) + args, lambda taps=taps: taps)
+            elif (dev.type == "cuda"
+                  and torch.cuda.is_current_stream_capturing()):
+                raise RuntimeError("sharded_resample: a CUDA graph captures "
+                                   "only ScaleMap coordinate maps, whose "
+                                   "taps stay on the card")
+            else:
+                iy_k, ix_k, *weights = upload_taps(dev, taps)
             out.append(resample_static(x.rows(lo, hi, dev), iy_k, ix_k,
                                        value_scale, *weights))
     return RowBlocks(out_h, shards=out)
@@ -428,10 +459,25 @@ def sharded_match_pair(left: torch.Tensor, right: torch.Tensor,
     warning says so (JAX spatial.py:839-848)."""
     check_supported(cfg)
     if cfg.early_exit_delta is not None:
-        warnings.warn(
-            "early_exit_delta is ignored by row-sharded level bodies; "
-            "sharded_match_pair runs the fixed iteration schedule on "
-            "sharded levels", stacklevel=2)
+        warn_fixed_schedule(stacklevel=3)
+    return _sharded_match_pair(left, right, cfg, mesh, pair,
+                               min_rows_per_shard, foveated)
+
+
+def warn_fixed_schedule(stacklevel: int = 2) -> None:
+    """The warning of a row-sharded match with ``early_exit_delta`` set."""
+    warnings.warn(
+        "early_exit_delta is ignored by row-sharded level bodies; "
+        "sharded_match_pair runs the fixed iteration schedule on "
+        "sharded levels", stacklevel=stacklevel)
+
+
+def _sharded_match_pair(left: torch.Tensor, right: torch.Tensor,
+                        cfg: MatcherConfig, mesh: Mesh, pair: int = 0,
+                        min_rows_per_shard: int = MIN_ROWS_PER_SHARD,
+                        foveated: bool = False) -> ShardedMatchResult:
+    """sharded_match_pair without its warning (the batch matcher warns
+    once a call, replays included)."""
     h, w = left.shape[-2:]
     n = cfg.num_levels(h, w)
     devices = mesh.row_devices(pair)

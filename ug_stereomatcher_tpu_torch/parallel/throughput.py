@@ -68,7 +68,10 @@ def measure_throughput(height: int = 192, width: int = 256,
     needs enough pyramid levels for ``cfg.fovea_level`` at this size.
 
     ``devices`` defaults to the visible CUDA cards, and a machine without
-    one raises.  A point's time is the least of ``repeats`` warm batches,
+    one raises.  On the card each point's matcher captures its CUDA
+    graphs at its first call (parallel/batch.py), outside the timing,
+    and the timed batches replay them.  A point's time is the least of
+    ``repeats`` warm batches,
     each ended by a synchronise of every distinct device of its mesh;
     ``scaling_efficiency`` is its pairs/s over the first point's per
     device times its device count, and ``oversubscribed`` says the mesh
@@ -106,7 +109,9 @@ def measure_throughput(height: int = 192, width: int = 256,
         used = mesh.distinct_devices()
         lt = torch.from_numpy(left).to(used[0])
         rt = torch.from_numpy(right).to(used[0])
-        # one matcher per device count, timed warm
+        # one matcher per device count, timed warm: on the card it
+        # replays its graphs, as the JAX harness times its compiled
+        # function
         fn = make_batch_matcher(cfg, mesh, foveated=foveated)
 
         def run():
@@ -115,7 +120,7 @@ def measure_throughput(height: int = 192, width: int = 256,
                 if dev.type == "cuda":
                     torch.cuda.synchronize(dev)
 
-        run()  # the first call builds the kernels
+        run()  # the first call builds the kernels and captures
         times = []
         for _ in range(repeats):
             t0 = time.perf_counter()
