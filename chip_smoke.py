@@ -48,9 +48,10 @@ Phases (any failure exits non-zero before the last line is printed):
    and warm latency, peak device memory, and the kernel time by name over
    one warm match (torch.profiler) with the device's busy share; then two
    816 x 1232 pairs on a 2 x 2 mesh of this card against match per pair,
-   the 1 x N mesh across the cards where there are several (eager: a
-   rows-group across cards) and the N x 1 mesh over them (a graph a
-   card); mode 2 on
+   then, where there are several cards, the 1 x N mesh across them, the
+   1 x 2 and the 2 x 2 hybrid (one CUDA graph a rows-group across its
+   cards) and the N x 1 mesh (a graph a card), each against the eager
+   matcher (with one card a line says this did not run); mode 2 on
    the same pair: match_foveated (f) nearest, (g) nearest per iteration,
    (h) bilinear, (i) match_hierarchical nearest and (j)
    match_batch(foveated=True) on the 1 x 4 mesh, each with its launch
@@ -1160,44 +1161,118 @@ def pair_batch(dev, cfg, report: dict) -> None:
 
 
 def across_cards(dev, cfg, left, right, ref, report: dict) -> None:
-    """With more than one card: the 1 x N mesh over the cards (a rows-group
-    across cards: the eager route), checked against the unsharded slice
-    and timed warm; then the N x 1 mesh over them, N copies of the pair
-    (a graph replayed on every card), each pair against the slice, timed
-    warm with one replay a card."""
+    """With more than one card: the pair on meshes over the cards, each
+    pair against the unsharded slice bit for bit, with its route and the
+    graph replays a call: the 1 x N rows mesh (one graph across the N
+    cards), the 1 x 2 rows mesh over two of them and the 2 x 2 hybrid
+    over four (one graph a rows-group), and the N x 1 mesh, N copies of
+    the pair (a graph a card).  Each is timed warm (median of 5, every
+    card synchronised) against the eager matcher on the same mesh
+    (``capture=False``, its result bit-equal too) in turns (eager, graph,
+    graph, eager), with its capture seconds, the memory its graphs hold
+    on each card (reserved after the calls over reserved before, the
+    cache emptied) and each card's busy ms over one graph call.  With
+    one card it prints that it did not run."""
     from ug_stereomatcher_tpu_torch import StereoEngine
-    from ug_stereomatcher_tpu_torch.ops.cuda import _build
-    from ug_stereomatcher_tpu_torch.parallel import make_mesh
+    from ug_stereomatcher_tpu_torch.parallel import (
+        make_batch_matcher, make_mesh)
 
     n = torch.cuda.device_count()
-    eng = StereoEngine(cfg, device=dev)
     row = report["across_cards"] = {"cards": n}
-    for label, mesh, b in (("rows", make_mesh(1, n), 1),
-                           ("pairs", make_mesh(n, 1), n)):
+    if n < 2:
+        print(f"across_cards: did not run: {n} CUDA card (a mesh over "
+              f"cards needs two or more)")
+        row["ran"] = False
+        return
+    cards = [torch.device("cuda", k) for k in range(n)]
+    meshes = [("rows", make_mesh(1, n), 1, 1)]
+    if n > 2:
+        meshes.append(("rows_1x2", make_mesh(1, 2, devices=cards[:2]), 1, 1))
+    if n >= 4:
+        meshes.append(("hybrid", make_mesh(2, 2, devices=cards[:4]), 2, 2))
+    meshes.append(("pairs", make_mesh(n, 1), n, n))
+    for label, mesh, b, replays_wanted in meshes:
         lb, rb = (x.expand((b,) + tuple(x.shape)) for x in (left, right))
-        out = eng.match_batch(lb, rb, mesh=mesh).triplet
+        eng = StereoEngine(cfg, device=dev)
+        eager = make_batch_matcher(cfg, mesh, capture=False)
+        lt, rt = (x.movedim(-1, 1).float().contiguous() for x in (lb, rb))
+
+        def graph():
+            out = eng.match_batch(lb, rb, mesh=mesh).triplet
+            synchronize_all()
+            return out
+
+        def eager_call():
+            out = eager(lt, rt)
+            synchronize_all()
+            return out
+
+        torch.cuda.empty_cache()
+        base = [torch.cuda.memory_reserved(c) for c in cards]
+        out, got, _, syncs, replays = counted_call(graph)
         route = eng.metrics["match_batch_route"]
         for i in range(b):
-            check_same(f"across_cards {mesh.shape} pair {i}", out[:, i], ref)
+            check_same(f"across_cards {label} {mesh.shape} pair {i}",
+                       out[:, i], ref)
         del out
-        warm = []
-        for _ in range(3):
-            _build.reset_launch_counts()
-            t0 = time.perf_counter()
-            eng.match_batch(lb, rb, mesh=mesh)
-            warm.append(time.perf_counter() - t0)
-        replays = _build.graph_replays()
+        eout, want, _, _, _ = counted_call(eager_call)
+        for i in range(b):
+            check_same(f"across_cards {label} eager pair {i}", eout[i], ref)
+        del eout
+        calls = held_calls(eng)
+        capture_s = sum(c.capture_s for c in calls)
+        _, _, _, _, replays = counted_call(graph)
+        e1, e1s = warm_ms(eager_call)
+        g1, g1s = warm_ms(graph)
+        g2, g2s = warm_ms(graph)
+        e2, e2s = warm_ms(eager_call)
+        graph_med = statistics.median(g1s + g2s)
+        eager_med = statistics.median(e1s + e2s)
+        busy = card_busy_ms(graph, n)
+        torch.cuda.empty_cache()
+        held = [torch.cuda.memory_reserved(c) - b0
+                for c, b0 in zip(cards, base)]
+        del eng, calls
+        torch.cuda.empty_cache()
         print(f"across_cards {label} {mesh.shape} route={route} "
-              f"replays_per_call={replays} warm_median_s="
-              f"{statistics.median(warm):.4f} "
-              f"warm_s={[round(x, 4) for x in warm]}")
-        if route != ("eager" if label == "rows" else "graph") or (
-                replays != (0 if label == "rows" else n)):
-            fail(f"across_cards {label}: route {route}, {replays} replays")
+              f"replays_per_call={replays} launches equal to eager: "
+              f"{got == want}, {syncs} host reads; warm graph="
+              f"{graph_med:.3f} ms eager={eager_med:.3f} ms runs graph "
+              f"{g1s + g2s} eager {e1s + e2s}; capture_s={capture_s:.4f} "
+              f"graph_held_bytes per card={held}; graph busy ms per card="
+              f"{[round(x, 3) for x in busy]}")
+        if route != "graph" or replays != replays_wanted:
+            fail(f"across_cards {label}: route {route}, {replays} replays "
+                 f"({replays_wanted} wanted)")
+        if got != want or syncs:
+            fail(f"across_cards {label}: launches {got} against eager "
+                 f"{want}, {syncs} host reads")
         row[label] = {"mesh": list(mesh.shape.values()), "route": route,
-                      "warm_s": warm, "replays_per_call": replays}
-    del eng
+                      "replays_per_call": replays, "launches": got,
+                      "graph_warm_ms": graph_med, "eager_warm_ms": eager_med,
+                      "graph_warm_runs_ms": g1s + g2s,
+                      "eager_warm_runs_ms": e1s + e2s,
+                      "capture_s": capture_s, "graph_held_bytes": held,
+                      "graph_busy_ms_per_card": busy}
     torch.cuda.empty_cache()
+
+
+def card_busy_ms(call, n: int) -> list:
+    """Each of the n cards' device-busy ms over one ``call()``: the kernel
+    and copy events of torch.profiler summed by the card they ran on."""
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+
+    synchronize_all()
+    with torch_profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA]) as prof:
+        call()
+        synchronize_all()
+    busy = [0.0] * n
+    for ev in prof.events():
+        if (str(getattr(ev, "device_type", "")).endswith("CUDA")
+                and 0 <= ev.device_index < n):
+            busy[ev.device_index] += ev.self_device_time_total / 1e3
+    return busy
 
 
 def level_table(dev, cfg, left, right, report: dict) -> None:
@@ -2592,16 +2667,29 @@ def process_child(backend: str) -> int:
     the group, and three 816 x 1232 pairs (seeds 0-2) through
     match_batch in mode 1 and mode 2, each returned pair against
     StereoEngine.match (match_foveated's stack) of that pair in this
-    process, bit for bit, and this rank's launches those of its share.
-    Prints one JSON line; exits 1 on a mismatch."""
+    process, bit for bit, and this rank's launches those of its share (a
+    pair row-sharded over its rows-group's cards counted as
+    expected_mesh_launches counts it).  Prints one JSON line; exits 1 on
+    a mismatch."""
+    import os
+
     import torch.distributed as dist
 
     from ug_stereomatcher_tpu_torch import StereoEngine, MatcherConfig, scene
     from ug_stereomatcher_tpu_torch.ops.cuda import _build
     from ug_stereomatcher_tpu_torch.parallel import (
         initialize_distributed, pod_mesh)
+    from ug_stereomatcher_tpu_torch.parallel.multihost import card_slots
 
-    torch.cuda.set_device(0)
+    # this rank's first card, as card_slots gives it (torchrun's
+    # LOCAL_WORLD_SIZE shares the host's cards out; without it each rank
+    # drives every card it sees, from card 0)
+    rank = int(os.environ.get("RANK", "0"))
+    slots = card_slots(int(os.environ.get("WORLD_SIZE", "1")),
+                       torch.cuda.device_count(),
+                       int(os.environ.get("LOCAL_WORLD_SIZE", "1")))
+    torch.cuda.set_device(next(s.device for s in slots
+                               if s.process_index == rank))
     initialize_distributed(device="cuda",
                            backend="gloo" if backend == "gloo" else None)
     rank, world = dist.get_rank(), dist.get_world_size()
@@ -2620,11 +2708,18 @@ def process_child(backend: str) -> int:
             if mesh.owner(i % mesh.shape["pairs"]) == rank]
     report = {"rank": rank, "world": world, "backend": dist.get_backend(),
               "mesh": mesh.shape, "local_pairs": mesh.local_pairs(),
+              "cards": [str(d) for d in mesh.local_devices()],
               "pairs_matched": mine, "device": torch.cuda.get_device_name(0)}
     ok = True
     for mode, fov in (("mode1", False), ("mode2", True)):
-        want = {k: len(mine) * v for k, v in expected_launches(
-            cfg, PROC_H, PROC_W, foveated=fov).items()}
+        want: dict = {}
+        for i in mine:   # a pair's launches: whole, or on its rows-group
+            devs = mesh.row_devices(i % mesh.shape["pairs"])
+            per = (expected_launches(cfg, PROC_H, PROC_W, foveated=fov)
+                   if len(devs) == 1 else expected_mesh_launches(
+                       cfg, PROC_H, PROC_W, devs, foveated=fov))
+            for k, v in per.items():
+                want[k] = want.get(k, 0) + v
         torch.cuda.synchronize()
         _build.reset_launch_counts()
         res = eng.match_batch(left, right, mesh=mesh, foveated=fov)
@@ -2659,24 +2754,33 @@ def process_child(backend: str) -> int:
 
 
 def run_ranks(label: str, world: int, backend: str, out: dict,
-              per_rank_env=None, timeout: int = 600) -> None:
-    """Start ``world`` ranks of process_child on a free local port and
-    fail unless every rank exits 0 with every pair equal."""
+              per_rank_env=None, timeout: int = 600,
+              torchrun: bool = False) -> None:
+    """Start ``world`` ranks of process_child on a free local port (or,
+    with ``torchrun``, one ``torchrun --standalone --nproc-per-node=world``
+    that starts them and sets their variables, LOCAL_WORLD_SIZE
+    included) and fail unless every rank exits 0 with every pair equal."""
     import os
     import socket
 
-    with socket.socket() as sock:
-        sock.bind(("127.0.0.1", 0))
-        port = sock.getsockname()[1]
-    env = {**os.environ, "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(port),
-           "WORLD_SIZE": str(world)}
-    procs = [subprocess.Popen(
-        [sys.executable, str(Path(__file__).resolve()), "--process-child",
-         backend],
-        env={**env, "RANK": str(r), **(per_rank_env(r) if per_rank_env
-                                       else {})},
-        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-        for r in range(world)]
+    child = [str(Path(__file__).resolve()), "--process-child", backend]
+    if torchrun:
+        procs = [subprocess.Popen(
+            [sys.executable, "-m", "torch.distributed.run", "--standalone",
+             f"--nproc-per-node={world}"] + child,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)]
+    else:
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            port = sock.getsockname()[1]
+        env = {**os.environ, "MASTER_ADDR": "127.0.0.1",
+               "MASTER_PORT": str(port), "WORLD_SIZE": str(world)}
+        procs = [subprocess.Popen(
+            [sys.executable] + child,
+            env={**env, "RANK": str(r), **(per_rank_env(r) if per_rank_env
+                                           else {})},
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            for r in range(world)]
     t0 = time.perf_counter()
     results = []
     try:
@@ -2689,21 +2793,26 @@ def run_ranks(label: str, world: int, backend: str, out: dict,
                 p.communicate()
     wall = time.perf_counter() - t0
     reports = []
-    for r, (p, (stdout, stderr)) in enumerate(zip(procs, results)):
+    for p, (stdout, stderr) in zip(procs, results):
         for line in stderr.splitlines():
             if line.startswith("rank "):
                 print(f"{label} {line}")
         if p.returncode != 0:
-            fail(f"{label}: rank {r} exited {p.returncode}:\n"
+            fail(f"{label}: a process exited {p.returncode}:\n"
                  f"{stdout[-2000:]}\n{stderr[-3000:]}")
-        rep = json.loads(stdout.strip().splitlines()[-1])
-        reports.append(rep)
+        reports += [json.loads(line) for line in stdout.splitlines()
+                    if line.startswith("{")]
+    reports.sort(key=lambda rep: rep["rank"])
+    if [rep["rank"] for rep in reports] != list(range(world)):
+        fail(f"{label}: reports of ranks {[r['rank'] for r in reports]}")
+    for rep in reports:
         for mode in ("mode1", "mode2"):
             m = rep[mode]
             launches = json.dumps(m["launches"], sort_keys=True)
-            print(f"{label} rank {r} {mode}: pairs {rep['pairs_matched']} "
-                  f"matched here, launches {launches}, every pair equal to "
-                  f"the single-process match: {m['equal']}, warm batch "
+            print(f"{label} rank {rep['rank']} {mode}: mesh {rep['mesh']}, "
+                  f"pairs {rep['pairs_matched']} matched here on "
+                  f"{rep['cards']}, launches {launches}, every pair equal "
+                  f"to the single-process match: {m['equal']}, warm batch "
                   f"{m['warm_batch_s']:.4f} s (three single matches "
                   f"{m['single_sum_s']:.4f} s)")
     print(f"{label}: {world} rank(s) over {reports[0]['backend']}, "
@@ -2741,7 +2850,11 @@ def trace_phase(dev, cfg, left, right, out: dict) -> None:
 
 
 def scaling_phase(dev, cfg, left, right, report: dict) -> None:
-    """Phase 3f: mesh scaling and processes."""
+    """Phase 3f: mesh scaling and processes: (a) batched_throughput, (b)
+    scaling_curves, (c) two gloo ranks, (d) one NCCL rank and, with
+    several cards, two NCCL ranks on separate cards and two ranks under
+    ``torchrun --nproc-per-node=2`` (each rank on its share of the cards,
+    multihost.card_slots), (e) trace_phase."""
     out = report["scaling"] = {}
     t0 = time.perf_counter()
     batched_throughput(dev, cfg, out)
@@ -2753,9 +2866,12 @@ def scaling_phase(dev, cfg, left, right, report: dict) -> None:
     if torch.cuda.device_count() > 1:
         run_ranks("processes_nccl_cards", 2, "nccl", out,
                   lambda r: {"CUDA_VISIBLE_DEVICES": str(r)})
+        # each rank drives its share of the cards (card_slots): with four,
+        # a rows-group over two cards a rank
+        run_ranks("processes_torchrun", 2, "nccl", out, torchrun=True)
     else:
-        print("processes_nccl_cards: one card, so two NCCL ranks on "
-              "separate cards do not run")
+        print("processes_nccl_cards, processes_torchrun: one card, so two "
+              "NCCL ranks on separate cards do not run")
     trace_phase(dev, cfg, left, right, out)
     out["wall_s"] = time.perf_counter() - t0
     print(f"scaling phase {out['wall_s']:.1f} s")
@@ -3338,8 +3454,7 @@ def main() -> int:
     del bil_ref
     torch.cuda.empty_cache()
     pair_batch(dev, cfg, report)
-    if torch.cuda.device_count() > 1:
-        across_cards(dev, cfg, left, right, near_ref, report)
+    across_cards(dev, cfg, left, right, near_ref, report)
     torch.cuda.empty_cache()
     mode2_slices(dev, cfg, bil, left, right, slices)
     extras(dev, cfg, bil, left, right, left_np, near_ref, slices, kernels,

@@ -43,7 +43,15 @@ scene, and to match per pair where no level is sharded under early
 exit; measure_throughput's dp and sp points at 408 x 616 replaying;
 profile_match's stage graphs bit-equal to the eager match with its
 counts; a dp mesh across two cards (a graph per card) and a rows-group
-across them (eager), which skip on a machine with one card.
+across them (one graph across both).  A rows-group across cards at 16
+MP (1 x 2, 1 x 4, the 2 x 2 hybrid over four; nearest, bilinear,
+foveated, early exit): one graph a group, bit-equal to the eager matcher
+with its counts and to one card's match; 20 replays with another card
+asleep each time, bit-equal; a failed capture across cards naming them.
+These skip on a machine with too few cards:
+
+    python -m pytest --noconftest -q -m gpu tests/test_torch_gpu.py \
+        -k "across or sleeping"
 """
 
 import numpy as np
@@ -1405,7 +1413,8 @@ def test_profile_match_replays_one_graph_per_stage(cuda):
 def test_dp_mesh_across_two_cards_replays_a_graph_per_card(cuda):
     """Two cards: a dp mesh replays one graph on each card and returns the
     batch on card 0, equal to match per pair; a rows-group across the
-    two cards runs eagerly and says so.  Skips with one card."""
+    two cards replays one graph across them, equal to match.  Skips with
+    one card."""
     if torch.cuda.device_count() < 2:
         pytest.skip("needs two CUDA cards")
     cards = [torch.device("cuda", k) for k in range(2)]
@@ -1418,7 +1427,129 @@ def test_dp_mesh_across_two_cards_replays_a_graph_per_card(cuda):
         assert out.device == cards[0]
         for i in range(3):
             assert_bits(out[:, i], eng.match(raw[0][i], raw[1][i]).triplet)
-    rows = eng.match_batch(raw[0][:1], raw[1][:1],
-                           mesh=par.make_mesh(1, 2, devices=cards))
-    assert eng.metrics["match_batch_route"] == "eager"
+    rows, _, _, _, replays = counted(lambda: eng.match_batch(
+        raw[0][:1], raw[1][:1], mesh=par.make_mesh(1, 2, devices=cards)))
+    assert eng.metrics["match_batch_route"] == "graph" and replays == 1
     assert_bits(rows.triplet[:, 0], eng.match(raw[0][0], raw[1][0]).triplet)
+
+
+# ------------------------------------ a rows-group across cards (16 MP)
+XH, XW = 3264, 4928      # the published 16 MP frame, as chip_smoke.py
+# mesh -> (pairs, rows, cards a rows-group spans, batch)
+CROSS_MESHES = {"rows_1x2": (1, 2, 1), "rows_1x4": (1, 4, 1),
+                "hybrid_2x2": (2, 2, 2)}
+CROSS_CASES = {"nearest": ({}, False), "bilinear": ({"interp": "bilinear"},
+                                                    False),
+               "foveated": ({}, True), "early_exit": ({"early_exit_delta":
+                                                       0.1}, False)}
+_SCENES = {}
+
+
+def scenes_16mp(dev, b):
+    """b 16 MP scene pairs (seeds 0, 1, ...) as uint8 (B, H, W, 3) batches
+    on ``dev``, made once for the module."""
+    if b not in _SCENES:
+        pairs = [scene.make_pair(XH, XW, seed=k) for k in range(b)]
+        _SCENES[b] = [np.stack([p[i] for p in pairs]) for i in (0, 1)]
+    return [torch.from_numpy(x).to(dev) for x in _SCENES[b]]
+
+
+def cards_or_skip(n):
+    if torch.cuda.device_count() < n:
+        pytest.skip(f"needs {n} CUDA cards, found "
+                    f"{torch.cuda.device_count()}")
+    return [torch.device("cuda", k) for k in range(n)]
+
+
+@pytest.mark.parametrize("case", sorted(CROSS_CASES))
+@pytest.mark.parametrize("name", sorted(CROSS_MESHES))
+def test_rows_group_across_cards_replays_a_graph(cuda, name, case):
+    """A 16 MP pair row-sharded over cards: one graph a rows-group (one
+    replay a call on 1 x N, two on the 2 x 2 hybrid), bit-equal to the
+    eager matcher on the same mesh with the same launch counts and
+    early-exit iterations, on the capture and on a replay; each pair
+    equal to one card's match (match_foveated), or with early exit (the
+    sharded levels' fixed schedule) to the same mesh on one card."""
+    import warnings
+
+    from ug_stereomatcher_tpu_torch.parallel.batch import make_batch_matcher
+    from ug_stereomatcher_tpu_torch.parallel.mesh import mesh_key
+    p, r, b = CROSS_MESHES[name]
+    cards = cards_or_skip(p * r)
+    fields, foveated = CROSS_CASES[case]
+    cfg = MatcherConfig(**fields)
+    mesh = par.make_mesh(p, r, devices=cards)
+    eng = StereoEngine(cfg, device=cards[0])
+    eager = make_batch_matcher(cfg, mesh, foveated=foveated, capture=False)
+    raw = scenes_16mp(cards[0], b)
+    lb, rb = (x.movedim(-1, 1).float().contiguous() for x in raw)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")   # early exit's sharded warning
+        ref, want, want_it, _, _ = counted(lambda: eager(lb, rb))
+        for _ in range(2):   # the capture, then a replay
+            out, got, got_it, syncs, replays = counted(
+                lambda: batch_planes(eng.match_batch(
+                    *raw, mesh=mesh, foveated=foveated), foveated))
+            assert eng.metrics["match_batch_route"] == "graph"
+            assert replays == p and syncs == 0
+            assert got == want and got_it == want_it
+            assert_bits(out, ref)
+        if fields.get("early_exit_delta") is not None:
+            one = par.make_mesh(p, r, devices=[cards[0]] * (p * r))
+            single = batch_planes(eng.match_batch(*raw, mesh=one), False)
+            assert_bits(out, single)
+    (calls,) = eng.matchers[(mesh_key(mesh), foveated)].graphs.values()
+    assert list(calls) == [tuple(cards[g * r:(g + 1) * r]) for g in range(p)]
+    if fields.get("early_exit_delta") is not None:
+        return
+    for i in range(b):
+        if foveated:
+            res = eng.match_foveated(raw[0][i], raw[1][i])
+            single = torch.stack([res.stack_h, res.stack_v, res.stack_c])
+        else:
+            single = eng.match(raw[0][i], raw[1][i]).triplet
+        assert_bits(out[i], single)
+
+
+def test_rows_group_across_cards_survives_a_sleeping_card(cuda):
+    """20 replays of a rows-group over every card (up to 4), each after a
+    torch.cuda._sleep on another card's current stream, the inputs
+    alternating between two scenes: every result equal to its scene's
+    eager result bit for bit (a halo read before its copy, or a band
+    overwritten while read, would show)."""
+    from ug_stereomatcher_tpu_torch.parallel.batch import make_batch_matcher
+    n = min(4, torch.cuda.device_count())
+    cards = cards_or_skip(max(n, 2))
+    cfg = MatcherConfig(fovea_level=3)
+    mesh = par.make_mesh(1, n, devices=cards)
+    graph = make_batch_matcher(cfg, mesh)
+    eager = make_batch_matcher(cfg, mesh, capture=False)
+    inputs, refs = [], []
+    for seed in (2, 3):
+        _, (lb, rb) = batch_on(cards[0], 1, seed)
+        inputs.append((lb, rb))
+        refs.append(eager(lb, rb))
+    _build.reset_launch_counts()
+    for k in range(20):
+        with torch.cuda.device(cards[k % n]):
+            torch.cuda._sleep(2_000_000)
+        out = graph(*inputs[k % 2])
+        assert_bits(out, refs[k % 2])
+    assert _build.graph_replays() == 20 and graph.route == "graph"
+
+
+def test_a_failed_capture_across_cards_names_them(cuda):
+    """A call that reads the host on the second card inside a capture
+    across two cards raises, naming both cards: nothing runs eagerly in
+    its place."""
+    from ug_stereomatcher_tpu_torch.graphs import CapturedCall
+    cards = cards_or_skip(2)
+
+    def fn(x):
+        y = x.to(cards[1]) * 2
+        y.sum().item()
+        return y.to(cards[0])
+    call = CapturedCall(fn, [(3, 8, 8)], cards[0], cards[1:])
+    with pytest.raises(RuntimeError, match="cuda:0, cuda:1"):
+        call(torch.ones(3, 8, 8, device=cards[0]))
+    assert call.graph is None

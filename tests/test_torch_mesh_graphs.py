@@ -1,9 +1,10 @@
 """The batch matcher's compile-once route (parallel/batch.py) and
 profile_match's stages, on the CPU.
 
-What runs here: which pairs of a batch go to which card's CUDA graph and
-which stay eager (``card_plan``, on meshes of ``torch.device("cuda", k)``
-objects, which need no card), the mesh key and the matcher's graph key,
+What runs here: which pairs of a batch go to which card's (or which
+rows-group's, across cards) CUDA graph and which stay eager, on the CPU
+(``card_plan``, on meshes of ``torch.device("cuda", k)`` objects, which
+need no card), the mesh key and the matcher's graph key,
 the engine's one matcher per key, and the CPU mesh route, which captures
 nothing, against the per-pair match and the JAX package.  The graphs
 themselves run on the card only (tests/test_torch_gpu.py).
@@ -59,7 +60,7 @@ def two_process_mesh():
 
 
 # ------------------------------------------------------------ the card plan
-# name -> (mesh, batch, rank, {card: pairs}, eager pairs)
+# name -> (mesh, batch, rank, {card or cards: pairs}, eager pairs)
 PLANS = {
     "repeated_card_sp": (lambda: par.make_mesh(1, 4, devices=[C0] * 4), 1,
                          0, {C0: [0]}, []),
@@ -70,9 +71,9 @@ PLANS = {
     "hybrid_across_cards": (lambda: par.make_mesh(
         2, 2, devices=[C0, C0, C1, C1]), 3, 0, {C0: [0, 2], C1: [1]}, []),
     "rows_across_cards": (lambda: par.make_mesh(1, 2, devices=[C0, C1]), 2,
-                          0, {}, [0, 1]),
+                          0, {(C0, C1): [0, 1]}, []),
     "one_group_across_cards": (lambda: Mesh([[C0, C0], [C2, C3]]), 3, 0,
-                               {C0: [0, 2]}, [1]),
+                               {C0: [0, 2], (C2, C3): [1]}, []),
     "cpu": (lambda: par.make_mesh(2, 2, devices=["cpu"] * 4), 3, 0, {},
             [0, 1, 2]),
     "two_processes_rank0": (two_process_mesh, 5, 0, {C0: [0, 2, 4]}, []),

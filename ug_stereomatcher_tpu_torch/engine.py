@@ -155,8 +155,10 @@ class StereoEngine:
       stage keys), the counterpart of the JAX engine's ``_cache``; empty
       on the CPU.
     * ``matchers``: match_batch's batch matchers by (mesh key,
-      ``foveated``) (parallel.batch.BatchMatcher, each with its graphs);
-      ``metrics["match_batch_route"]`` names the route of the last batch.
+      ``foveated``) (parallel.batch.BatchMatcher, each with its graphs,
+      a card's or a rows-group's across cards);
+      ``metrics["match_batch_route"]`` names the route of the last batch
+      (``"graph"`` on cards, ``"eager"`` on the CPU).
     """
 
     def __init__(self, config: Optional[MatcherConfig] = None,
@@ -276,9 +278,10 @@ class StereoEngine:
         matcher per mesh key and ``foveated`` (parallel.mesh.mesh_key), as
         the JAX engine caches its jitted matcher per shape and mesh
         (engine.py:383-390): on the card it replays one CUDA graph per
-        batch shape and card, except for a rows-group whose rows lie on
-        more than one card, which runs eagerly;
-        ``metrics["match_batch_route"]`` says which ran."""
+        batch shape and card, or per batch shape and rows-group where a
+        group's rows lie on several cards (one graph across them, its
+        halo copies between the cards inside it); CPU devices run
+        eagerly; ``metrics["match_batch_route"]`` says which ran."""
         from ug_stereomatcher_tpu_torch.parallel.batch import (
             make_batch_matcher)
         from ug_stereomatcher_tpu_torch.parallel.mesh import mesh_key

@@ -24,14 +24,25 @@ after a replay are therefore the eager call's.
 The capture runs in ``thread_local`` mode: another thread (BatchRunner's
 prefetcher) may touch CUDA while this one captures.  A call that the
 capture refuses (a host read, a pageable copy, a synchronise) raises
-with the reason; nothing falls back to the eager path.  Each graph keeps
-its own memory pool alive for as long as it lives (about an eager call's
-peak), and a graph replays on the device it was captured on.
+with the reason and the cards; nothing falls back to the eager path.
+Each graph keeps its own memory pool alive for as long as it lives
+(about an eager call's peak), and a graph replays on the device it was
+captured on.
+
+One graph may span several cards (``peers``), as one jitted program of
+the JAX package spans a rows-group's devices: each card's work runs on a
+side stream of that card, which joins the capture through an event
+(``wait_stream``) and is joined back before it ends; each card's
+allocations go to a pool of that card (``torch.cuda.MemPool``, which
+lives as long as the graph), and the copies between cards become graph
+nodes whose order the graph's edges keep.  The replay is one launch on
+the first card's stream; the other cards' nodes wait only on the graph's
+own edges.
 
 Who captures: the engine's single-device entry points (engine.py), the
-batch matcher (parallel/batch.py: one graph per batch shape and card, so
-a mesh replays one graph on each card it covers; a rows-group that
-spans several cards is the one route that stays eager) and
+batch matcher (parallel/batch.py: one graph per batch shape and card,
+or per batch shape and rows-group where the group's rows lie on several
+cards, so a mesh replays one graph on each card or group it covers) and
 ``profile_match``'s stages, which chain: a stage's static inputs are the
 previous stage's static outputs, read in place (``load`` copies nothing
 for them) and never cloned.
@@ -40,9 +51,10 @@ for them) and never cloned.
 from __future__ import annotations
 
 import collections
+import contextlib
 import threading
 import time
-from typing import Callable, Optional, Sequence, Tuple, Union
+from typing import Callable, Dict, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -76,12 +88,14 @@ class CapturedCall:
 
     def __init__(self, fn: Callable[..., object],
                  inputs: Sequence[Union[Sequence[int], torch.Tensor]],
-                 device: torch.device):
+                 device: torch.device, peers: Sequence[torch.device] = ()):
         self.fn = fn
         self.device = torch.device(device)
-        if self.device.type != "cuda":
-            raise ValueError(f"a CUDA graph needs a CUDA device, got "
-                             f"{self.device}")
+        self.peers = tuple(d for d in dict.fromkeys(
+            torch.device(p) for p in peers) if d != self.device)
+        for d in (self.device,) + self.peers:
+            if d.type != "cuda":
+                raise ValueError(f"a CUDA graph needs CUDA devices, got {d}")
         self.inputs = tuple(
             x if isinstance(x, torch.Tensor) else
             torch.empty(tuple(x), dtype=torch.float32, device=self.device)
@@ -92,19 +106,26 @@ class CapturedCall:
         self.launches: collections.Counter = collections.Counter()
         self.iterations = match_mod.IterationCounts()
         self.capture_s: Optional[float] = None
+        self.pools: Dict[torch.device, object] = {}
         self._lock = threading.Lock()
 
     def _capture(self) -> None:
         t0 = time.perf_counter()
-        here = torch.cuda.current_stream(self.device)
-        side = torch.cuda.Stream(self.device)
-        side.wait_stream(here)
-        with torch.cuda.stream(side), \
+        cards = (self.device,) + self.peers
+        _peer_access(cards)
+        here = [torch.cuda.current_stream(d) for d in cards]
+        side = [torch.cuda.Stream(d) for d in cards]
+        for s, h in zip(side, here):
+            s.wait_stream(h)
+        with _current_streams(side), \
                 _build.counting_into(collections.Counter()), \
                 match_mod.counting_iterations_into(
                     match_mod.IterationCounts()):
             self.fn(*self.inputs)
-        here.wait_stream(side)
+        for s, h in zip(side, here):
+            h.wait_stream(s)
+        for s in side[1:]:
+            s.synchronize()   # the peers' warm-up, before their capture
         graph = torch.cuda.CUDAGraph()
         launches = collections.Counter()
         iterations = match_mod.IterationCounts()
@@ -113,11 +134,14 @@ class CapturedCall:
             # is one stream for the process, on the first device it met
             with _build.counting_into(launches), \
                     match_mod.counting_iterations_into(iterations), \
-                    torch.cuda.graph(graph, stream=side,
-                                     capture_error_mode="thread_local"):
+                    torch.cuda.graph(graph, stream=side[0],
+                                     capture_error_mode="thread_local"), \
+                    self._joined(side):
                 out = self.fn(*self.inputs)
         except Exception as exc:
-            raise RuntimeError(f"CUDA graph capture failed: {exc}") from exc
+            names = ", ".join(str(d) for d in cards)
+            raise RuntimeError(f"CUDA graph capture failed on {names}: "
+                               f"{exc}") from exc
         self.single = isinstance(out, torch.Tensor)
         self.outputs = (out,) if self.single else tuple(out)
         self.graph, self.launches, self.iterations = graph, launches, iterations
@@ -125,6 +149,26 @@ class CapturedCall:
         # fn may hold the engine that holds this call: drop it, so that
         # the graph and its pool go with the engine without a GC pass
         self.fn = None
+
+    @contextlib.contextmanager
+    def _joined(self, side: Sequence[torch.cuda.Stream]):
+        """Inside ``torch.cuda.graph`` on ``side[0]``: each peer's side
+        stream joins the capture and is its card's current stream, and
+        this thread's allocations on the peer go to the peer's pool, until
+        the block ends and the capture stream joins the peers back."""
+        cap = side[0]
+        with contextlib.ExitStack() as stack:
+            for s in side[1:]:
+                s.wait_stream(cap)
+                if s.device not in self.pools:
+                    with torch.cuda.device(s.device):
+                        self.pools[s.device] = torch.cuda.MemPool()
+                stack.enter_context(torch.cuda.use_mem_pool(
+                    self.pools[s.device], s.device))
+            stack.enter_context(_current_streams(side[1:]))
+            yield
+        for s in side[1:]:
+            cap.wait_stream(s)
 
     def load(self, *sources: torch.Tensor) -> None:
         """Copy ``sources`` (tensors on any CUDA device, each broadcastable
@@ -158,3 +202,31 @@ class CapturedCall:
             with torch.cuda.device(self.device):
                 out = tuple(t.clone() for t in self.replay())
         return out[0] if self.single else out
+
+
+@contextlib.contextmanager
+def _current_streams(streams: Sequence[torch.cuda.Stream]):
+    """Make each stream its card's current stream while the block runs
+    (the current device stays as it was)."""
+    here = torch.cuda.current_device()
+    prev = [torch.cuda.current_stream(s.device) for s in streams]
+    for s in streams:
+        torch.cuda.set_stream(s)
+    torch.cuda.set_device(here)
+    try:
+        yield
+    finally:
+        for s in prev:
+            torch.cuda.set_stream(s)
+        torch.cuda.set_device(here)
+
+
+def _peer_access(cards: Sequence[torch.device]) -> None:
+    """Enable peer access between every two of ``cards`` that allow it
+    (torch enables it at a pair's first copy: one element copied each way
+    does it before the warm-up and the capture), so that the copies
+    between them are direct."""
+    for a in cards:
+        for b in cards:
+            if a != b and torch.cuda.can_device_access_peer(a, b):
+                torch.empty(1, device=b).copy_(torch.empty(1, device=a))

@@ -23,23 +23,26 @@ program (batch.py:65-170): on the card the matcher keeps one CUDA graph
 per key (``graphs.graph_key`` of the batch shape, config and
 ``foveated``, plus ``mesh.mesh_key``) and card, captured at the key's
 first call.  Without a mesh that is the pairs in turn on ``device``.  On
-a mesh, the pairs this process matches whose pairs-group lies on one
-card go into that card's graph (``card_plan``): the whole
-sharded_match_pair of each, its halo copies and replicated stages
-included, becomes graph nodes.  The copies of the inputs onto each card
-and of the results onto the mesh's first device, and the all-gather
-across processes, stay outside the graphs; every card's graph is
+a mesh, the pairs this process matches go by their pairs-group
+(``card_plan``): a group whose rows lie on one card into that card's
+graph, a group whose rows lie on several cards into one graph across
+those cards (the JAX package's compiled step of a rows-group, its
+``ppermute`` halos and tiled ``all_gather``, batch.py:125-170 and
+spatial.py:86-99, :180).  Either way the whole sharded_match_pair of
+each pair, its halo exchanges and replicated stages included, becomes
+graph nodes: a halo is a copy into a band at its final place, a peer
+copy where it crosses cards.  The copies of the inputs onto each group's
+first card and of the results onto the mesh's first device, and the
+all-gather across processes, stay outside the graphs; every graph is
 replayed before any result is copied back, so the cards run together.
-A pairs-group whose rows lie on more than one card is the one case that
-runs eagerly (a graph belongs to one device; ROADMAP item 14), and the
-matcher's ``route`` names what its last call ran.  CPU devices capture
-nothing.
+Only CPU devices, or ``capture=False``, run eagerly, and the matcher's
+``route`` names what its last call ran.
 """
 
 from __future__ import annotations
 
 import threading
-from typing import Callable, Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple, Union
 
 import torch
 import torch.distributed as dist
@@ -59,6 +62,9 @@ from ug_stereomatcher_tpu_torch.parallel.spatial import (
     on_device,
     warn_fixed_schedule,
 )
+
+# a graph's card (a group on one card) or a group's cards (several)
+CardKey = Union[torch.device, Tuple[torch.device, ...]]
 
 
 def _single_pair(left: torch.Tensor, right: torch.Tensor,
@@ -88,26 +94,32 @@ def _single_pair_foveated(left: torch.Tensor, right: torch.Tensor,
 
 
 def card_plan(mesh: Mesh, batch: int, rank: int
-              ) -> Tuple[Dict[torch.device, List[int]], List[int]]:
+              ) -> Tuple[Dict[CardKey, List[int]], List[int]]:
     """How process ``rank`` matches its pairs of a ``batch`` on ``mesh``:
-    by CUDA card, the pairs whose pairs-group lies on that one card (one
-    graph a card, pairs in batch order), and the pairs it matches
-    eagerly, whose group's rows lie on more than one card or on the CPU.
-    Pair i goes to group i mod P; the pairs of the groups other
-    processes drive are in neither."""
+    by graph, the pairs whose pairs-group lies on CUDA cards (one graph
+    a key, pairs in batch order), keyed by the group's card where its
+    rows lie on one, else by the tuple of its cards in row order; and the
+    pairs it matches eagerly, whose group lies on the CPU.  Pair i goes
+    to group i mod P; the pairs of the groups other processes drive are
+    in neither."""
     p = mesh.shape["pairs"]
-    cards: Dict[torch.device, List[int]] = {}
+    cards: Dict[CardKey, List[int]] = {}
     eager: List[int] = []
     for i in range(batch):
         if mesh.owner(i % p) != rank:
             continue
-        devs = set(mesh.devices[i % p])
-        card = devs.pop() if len(devs) == 1 else None
-        if card is not None and card.type == "cuda":
-            cards.setdefault(card, []).append(i)
+        devs = tuple(dict.fromkeys(mesh.devices[i % p]))
+        if all(d.type == "cuda" for d in devs):
+            cards.setdefault(devs[0] if len(devs) == 1 else devs,
+                             []).append(i)
         else:
             eager.append(i)
     return cards, eager
+
+
+def _cards(key: CardKey) -> Tuple[torch.device, ...]:
+    """The cards of a ``card_plan`` key, the group's first card first."""
+    return (key,) if isinstance(key, torch.device) else key
 
 
 def _as_input(x: torch.Tensor, dev: torch.device) -> torch.Tensor:
@@ -145,10 +157,12 @@ def make_batch_matcher(cfg: MatcherConfig, mesh: Optional[Mesh] = None,
 class BatchMatcher:
     """The callable ``make_batch_matcher`` returns.
 
-    * ``graphs``: key -> {card: graphs.CapturedCall}, the graphs it
-      captured (each holds its memory pool while the matcher lives);
-    * ``route``: what the last call ran: ``"graph"``, ``"eager"``, or
-      ``"graph+eager"`` where a mesh has groups of both kinds."""
+    * ``graphs``: key -> {card or tuple of cards: graphs.CapturedCall},
+      the graphs it captured (``card_plan``'s keys; each holds its
+      memory pools while the matcher lives);
+    * ``route``: what the last call ran: ``"graph"``, ``"eager"``
+      (``capture=False``, or CPU devices), or ``"graph+eager"`` where a
+      mesh has groups of both kinds."""
 
     def __init__(self, cfg: MatcherConfig, mesh: Optional[Mesh], device,
                  foveated: bool, capture: bool):
@@ -193,13 +207,15 @@ class BatchMatcher:
         return graph_key("match_batch", shape, self.cfg, None,
                          self.foveated) + (mesh_key(self.mesh),)
 
-    def _call_on(self, card: torch.device, shape, fn) -> CapturedCall:
-        """The card's graph of the batch shape ``shape`` (made at the
-        key's first call); ``fn`` is the call it captures."""
+    def _call_on(self, card: CardKey, shape, fn) -> CapturedCall:
+        """The graph of the batch shape ``shape`` on ``card`` (a card, or
+        a rows-group's tuple of cards; made at the key's first call);
+        ``fn`` is the call it captures."""
         with self._lock:
             calls = self.graphs.setdefault(self.key(shape), {})
             if card not in calls:
-                calls[card] = CapturedCall(fn, [shape, shape], card)
+                first, *peers = _cards(card)
+                calls[card] = CapturedCall(fn, [shape, shape], first, peers)
             return calls[card]
 
     def _pairs_on(self, dev: torch.device):
@@ -220,10 +236,11 @@ class BatchMatcher:
         self.route = "eager"
         return self._pairs_on(dev)(lb, rb)
 
-    def _card_fn(self, card: torch.device, idx: List[int]):
-        """``(lc, rc) ->`` the pairs ``idx`` (stacked in lc, rc on
-        ``card``) each through its group, stacked on the card."""
+    def _card_fn(self, card: CardKey, idx: List[int]):
+        """``(lc, rc) ->`` the pairs ``idx`` (stacked in lc, rc on the
+        first card of ``card``) each through its group, stacked there."""
         p = self.mesh.shape["pairs"]
+        card = _cards(card)[0]
 
         def on_card(lc, rc):
             return torch.stack([self._on_group(lc[k], rc[k], i % p, card)

@@ -3,8 +3,9 @@
 Counterpart of ``ug_stereomatcher_tpu/parallel/mesh.py``.  The JAX
 package's sharded engine is single-controller: one process drives every
 device of the mesh.  The port keeps that design within a process: a shard
-is a tensor on its mesh device, a halo exchange is a row slice copied with
-``.to``, and an all-gather is a ``torch.cat`` of such copies.  A device may
+is a tensor on its mesh device, a halo exchange copies row slices into a
+band on the shard's device (a peer copy between cards), and an all-gather
+copies every shard's rows into one tensor.  A device may
 appear more than once, as the JAX tests' virtual CPU devices do: ``[cpu] *
 4`` runs the sharded code in one process, and ``[cuda:0] * 4`` runs four
 shards on one card with every halo copy real.
@@ -15,7 +16,7 @@ mesh, as a JAX device carries both.  ``make_mesh`` gives every entry to
 the calling process; ``multihost.pod_mesh`` builds a mesh whose pairs axis
 spans processes (parallel/batch.py then gathers the pairs over
 ``torch.distributed``).  A rows-group never spans processes: its halo
-copies are local ``.to`` copies.
+copies stay inside the process that drives it.
 """
 
 from __future__ import annotations

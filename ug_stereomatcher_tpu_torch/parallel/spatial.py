@@ -6,8 +6,11 @@ drives every device of a mesh's rows axis (mesh.py).  A level's (C, H, W)
 array is split into row shards of ``hl = ceil(H / n)`` rows, the last one
 shorter (``RowBlocks``); a stage runs once per shard on the shard's
 device, and the rows a stencil reaches beyond its shard (its halo) are
-copied from whichever shards hold them, with the zero or clamp boundary
-at the image's own edges (``halo_pad_rows``).
+copied from whichever shards hold them into a band at their final place
+beside the shard's rows, with the zero or clamp boundary at the image's
+own edges (``halo_pad_rows``, ``RowBlocks.rows_into``).  A level's
+exchanges reuse their bands on every iteration, so inside a CUDA graph
+every halo has a fixed destination, on one card or across several.
 
 A level (``sharded_match_level``) blurs G(L^2) on clamp-haloed shards,
 gathers the whole right image once on each device (the warp's source:
@@ -132,26 +135,66 @@ class RowBlocks:
              boundary: str = "clamp") -> torch.Tensor:
         """The global rows [lo, hi) on ``device``, contiguous, copied from
         whichever blocks hold them; rows outside the image are zeros
-        (``"zero"``) or the image's edge row (``"clamp"``)."""
+        (``"zero"``) or the image's edge row (``"clamp"``).  Rows that one
+        block on ``device`` holds contiguously are that block's view."""
+        device = torch.device(device)
+        if 0 <= lo and hi <= self.height:
+            srcs = self._sources(lo, hi, device)
+            if len(srcs) == 1 and srcs[0][0].device == device:
+                src, a, b = srcs[0]
+                if src[..., a:b, :].is_contiguous():
+                    return src[..., a:b, :]
+        first = self._blocks()[0]
+        out = torch.empty(first.shape[:-2] + (hi - lo, first.shape[-1]),
+                          dtype=first.dtype, device=device)
+        return self.rows_into(out, lo, boundary)
+
+    def _sources(self, a: int, b: int, device: torch.device):
+        """(block, first, stop): the blocks' local rows that hold the
+        global rows [a, b), in order (the copy on ``device`` where the
+        array is whole and has one there)."""
+        if not self.sharded:
+            src = self.copies.get(device, next(iter(self.copies.values())))
+            return [(src, a, b)]
+        return [(self.shards[k], s0, s1)
+                for k, s0, s1 in _pieces(self.height, len(self.shards), a, b)]
+
+    def rows_into(self, out: torch.Tensor, lo: int,
+                  boundary: str = "clamp") -> torch.Tensor:
+        """Write the global rows [lo, lo + out rows) into ``out`` (a band
+        allocated by the caller, on any device) and return it: each piece
+        goes straight to its place, with the zero or clamp boundary
+        outside the image.  Where every piece lies on ``out``'s card,
+        one ``torch.cat`` into the band writes it; otherwise (the CPU, or
+        pieces on other cards) each piece is one copy into its rows, a
+        peer copy where the piece lies on another card."""
+        hi = lo + out.shape[-2]
         a, b = max(lo, 0), min(hi, self.height)
         if a >= b:
             raise ValueError(f"rows [{lo}, {hi}) miss the {self.height}-row "
                              f"image")
-        if self.sharded:
-            pieces = [blk[..., max(a, s0) - s0:min(b, s1) - s0, :].to(device)
-                      for (s0, s1), blk in zip(
-                          row_splits(self.height, len(self.shards)),
-                          self.shards) if s0 < b and s1 > a]
-        else:
-            src = self.copies.get(device, next(iter(self.copies.values())))
-            pieces = [src[..., a:b, :].to(device)]
-        if lo < 0:
-            pieces.insert(0, _edge_rows(pieces[0][..., :1, :], -lo, boundary))
-        if hi > self.height:
-            pieces.append(_edge_rows(pieces[-1][..., -1:, :],
-                                     hi - self.height, boundary))
-        out = pieces[0] if len(pieces) == 1 else torch.cat(pieces, dim=-2)
-        return out.contiguous()
+        views = [src[..., s0:s1, :]
+                 for src, s0, s1 in self._sources(a, b, out.device)]
+        top, bottom = a - lo, hi - b
+        if out.device.type == "cuda" and all(v.device == out.device
+                                             for v in views):
+            if top:
+                views.insert(0, _edge_rows(views[0][..., :1, :], top,
+                                           boundary))
+            if bottom:
+                views.append(_edge_rows(views[-1][..., -1:, :], bottom,
+                                        boundary))
+            torch.cat(views, dim=-2, out=out)
+            return out
+        at = top
+        for v in views:
+            out[..., at:at + v.shape[-2], :].copy_(v)
+            at += v.shape[-2]
+        if top:
+            _fill_edge(out[..., :top, :], out[..., top:top + 1, :], boundary)
+        if bottom:
+            _fill_edge(out[..., at:, :], out[..., at - 1:at, :], boundary)
+        return out
 
     def gather(self, device) -> torch.Tensor:
         """The whole array on ``device`` (an all-gather of the shards)."""
@@ -185,6 +228,28 @@ def _edge_rows(row: torch.Tensor, n: int, boundary: str) -> torch.Tensor:
     raise ValueError(f"unknown boundary {boundary!r}")
 
 
+def _fill_edge(dst: torch.Tensor, row: torch.Tensor, boundary: str) -> None:
+    """Fill the rows ``dst`` outside the image: zeros, or ``row`` (the
+    image's edge row) repeated."""
+    if boundary == "zero":
+        dst.zero_()
+    elif boundary == "clamp":
+        dst.copy_(row.expand(dst.shape))
+    else:
+        raise ValueError(f"unknown boundary {boundary!r}")
+
+
+@functools.lru_cache(maxsize=4096)
+def _pieces(height: int, n: int, a: int, b: int) -> Tuple[tuple, ...]:
+    """The band plan of the global rows [a, b) of a ``height``-row array
+    in n row shards: (shard k, first, stop) of each shard's local rows
+    that hold some of them, top to bottom.  A halo taller than a shard
+    takes rows from as many shards as it reaches."""
+    return tuple((k, max(a, s0) - s0, min(b, s1) - s0)
+                 for k, (s0, s1) in enumerate(row_splits(height, n))
+                 if s0 < b and s1 > a)
+
+
 def _blockwise(fn, *arrays: RowBlocks) -> RowBlocks:
     """``fn`` over the corresponding blocks of arrays of one layout."""
     first = arrays[0]
@@ -195,15 +260,23 @@ def _blockwise(fn, *arrays: RowBlocks) -> RowBlocks:
         d: fn(*(a.copies[d] for a in arrays)) for d in first.copies})
 
 
-def halo_pad_rows(x: RowBlocks, halo: int,
-                  boundary: str = "clamp") -> List[torch.Tensor]:
+def halo_pad_rows(x: RowBlocks, halo: int, boundary: str = "clamp",
+                  out: Optional[List[torch.Tensor]] = None
+                  ) -> List[torch.Tensor]:
     """Each shard of a row-sharded array with ``halo`` rows above and below
     it, on the shard's device: (..., Hl, W) -> (..., Hl + 2 halo, W).  The
     halo rows come from whichever shards hold them (a halo may be taller
-    than a shard); outside the image they are zeros or the edge row."""
-    return [x.rows(a - halo, b + halo, blk.device, boundary)
-            for (a, b), blk in zip(row_splits(x.height, len(x.shards)),
-                                   x.shards)]
+    than a shard); outside the image they are zeros or the edge row.
+    ``out`` gives the bands to write (the previous call's result: a
+    level's exchanges reuse their bands, so every halo lands in the same
+    place on each iteration and on each replay of a CUDA graph); without
+    it each band is allocated."""
+    splits = row_splits(x.height, len(x.shards))
+    if out is None:
+        return [x.rows(a - halo, b + halo, blk.device, boundary)
+                for (a, b), blk in zip(splits, x.shards)]
+    return [x.rows_into(band, a - halo, boundary)
+            for (a, _), band in zip(splits, out)]
 
 
 def _distinct(devices: Sequence[torch.device]) -> List[torch.device]:
@@ -389,6 +462,7 @@ def sharded_match_level(left, right, disp, level_index: int,
                        [..., 2:2 + b - a, :].contiguous())
 
     state = disp
+    warped_h = upd_h = None   # each exchange's bands, reused every iteration
     for m, threshold in enumerate(cfg.threshold_schedule(mi)):
         # The coarsest level's first iteration replaces the confidence.
         replace = is_coarsest and m == 0
@@ -397,14 +471,15 @@ def sharded_match_level(left, right, disp, level_index: int,
             with on_device(dev):
                 warped.append(warp(right_full[dev], st[0], st[1], cfg.interp,
                                    row0=a))
-        warped_h = halo_pad_rows(RowBlocks(H, shards=warped), DIR_HALO)
+        warped_h = halo_pad_rows(RowBlocks(H, shards=warped), DIR_HALO,
+                                 out=warped_h)
         upd = []
         for k, ((a, _), dev) in enumerate(shards):
             with on_device(dev):
                 upd.append(fused_direction_update(
                     left_h[k], warped_h[k], bl2[k], state.shards[k],
                     threshold, replace, cfg.conf_consts, row0=a, global_h=H))
-        upd_h = halo_pad_rows(RowBlocks(H, shards=upd), sm_halo)
+        upd_h = halo_pad_rows(RowBlocks(H, shards=upd), sm_halo, out=upd_h)
         smoothed = []
         for ((a, _), dev), block in zip(shards, upd_h):
             with on_device(dev):
