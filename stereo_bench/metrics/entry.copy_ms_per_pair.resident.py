@@ -1,0 +1,7 @@
+"""entry.copy_ms_per_pair.resident: entry.copy_ms_per_pair in the cells whose inputs already lie on the
+card, where it moves the resident end-to-end metrics (the same reader)."""
+
+import runpy
+from pathlib import Path
+
+read = runpy.run_path(str(Path(__file__).with_name("entry.copy_ms_per_pair.py")))["read"]

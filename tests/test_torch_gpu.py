@@ -1553,3 +1553,72 @@ def test_a_failed_capture_across_cards_names_them(cuda):
     with pytest.raises(RuntimeError, match="cuda:0, cuda:1"):
         call(torch.ones(3, 8, 8, device=cards[0]))
     assert call.graph is None
+
+
+# ------------------------------------------------------------ the spans
+SPAN_ENTRIES = {
+    "match": (None, ["entry.upload", "graph.load", "graph.replay",
+                     "graph.clone"]),
+    "match_batch": (None, ["entry.upload", "graph.load", "graph.replay",
+                           "graph.clone"]),
+    "match_batch_mesh": ((2, 1), ["entry.upload", "mesh.scatter",
+                                  "graph.load", "graph.replay",
+                                  "mesh.gather"]),
+}
+
+
+@pytest.mark.parametrize("entry", sorted(SPAN_ENTRIES))
+def test_spans_time_the_card_with_no_extra_synchronise(cuda, monkeypatch,
+                                                       entry):
+    """Spans on: the device seconds of each timed span are positive and
+    were read when the request ended, after the entry's own synchronise:
+    the call makes as many synchronises as with spans off."""
+    from ug_stereomatcher_tpu_torch import profiling
+
+    grid, timed = SPAN_ENTRIES[entry]
+    eng = StereoEngine(MatcherConfig(fovea_level=3), device="cuda")
+    left, right = scene.make_pair(GH, GW)
+    mesh = par.make_mesh(*grid, devices=[cuda] * 2) if grid else None
+
+    def call():
+        if entry == "match":
+            eng.match(left, right)
+        else:
+            eng.match_batch(np.stack([left] * 2), np.stack([right] * 2),
+                            mesh=mesh)
+    call()   # the capture
+    syncs = []
+    real = torch.cuda.synchronize
+    monkeypatch.setattr(torch.cuda, "synchronize",
+                        lambda *a: syncs.append(a) or real(*a))
+    call()
+    off = len(syncs)
+    profiling.reset_spans()
+    try:
+        with profiling.collecting():
+            call()
+        assert off > 0 and len(syncs) == 2 * off
+        assert not profiling._REG.pending   # read at the request's end
+        totals = profiling.span_totals()
+    finally:
+        profiling.reset_spans()
+    assert totals["entry.request"]["count"] == 1
+    assert totals["entry.request"]["pairs"] == (1 if entry == "match" else 2)
+    for name in timed:
+        assert totals[name]["device_s"] > 0, name
+    assert totals["entry.sync"]["device_s"] == 0
+
+
+def test_graph_captures_count_one_a_key(cuda):
+    eng = StereoEngine(MatcherConfig(fovea_level=3), device="cuda")
+    left, right = scene.make_pair(GH, GW)
+    _build.reset_launch_counts()
+    eng.match(left, right)
+    assert _build.graph_captures() == 1
+    eng.match_foveated(left, right)
+    assert _build.graph_captures() == 2
+    _build.reset_launch_counts()
+    for _ in range(2):
+        eng.match(left, right)
+        eng.match_foveated(left, right)
+    assert _build.graph_captures() == 0 and _build.graph_replays() == 4

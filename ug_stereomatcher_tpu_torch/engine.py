@@ -48,7 +48,7 @@ from ug_stereomatcher_tpu_torch import pyramid as pyr
 from ug_stereomatcher_tpu_torch.config import MatcherConfig, check_supported
 from ug_stereomatcher_tpu_torch.device import DTYPE, resolve_device
 from ug_stereomatcher_tpu_torch.graphs import CapturedCall, graph_key
-from ug_stereomatcher_tpu_torch.profiling import Timings
+from ug_stereomatcher_tpu_torch.profiling import REQUEST, Timings, span
 
 
 @dataclasses.dataclass
@@ -139,11 +139,20 @@ def _check_fovea(cfg: MatcherConfig, height: int, width: int) -> None:
 class StereoEngine:
     """Long-lived stereo matching engine on one device.
 
-    * ``timings``: cumulative per-entry-point wall-clock buckets.
+    * ``timings``: cumulative per-entry-point wall-clock totals.
     * ``metrics``: last-call snapshot, ``{entry}_s`` per entry point.
 
     An entry point returns once the device has finished its work, so the
-    recorded time is completion latency, not enqueue time.
+    recorded time is completion latency, not enqueue time.  While
+    tracing is on (a ``torch.profiler`` records, or
+    ``profiling.collecting()``), ``match``, ``match_foveated``,
+    ``match_hierarchical`` and ``match_batch`` each open an
+    ``entry.request`` span (its ``pairs`` the pairs served) on the same
+    two clock reads as ``timings``, with ``entry.upload`` (the images'
+    copy to the device, device-timed), the graph's ``graph.load``,
+    ``graph.replay`` and ``graph.clone`` (graphs.py) or the mesh's spans
+    (parallel/batch.py) and ``entry.sync`` (the final synchronise)
+    inside it (profiling.py).
     ``resident_max_pixels`` is a measurement-only override of the
     level-resident gate of match.match_level, for timing both routes of
     one match (None, the default for every workload: the size-derived
@@ -197,11 +206,16 @@ class StereoEngine:
                         self.resident_max_pixels)
         return self._graph(key, impl, [x.shape for x in sources])(*sources)
 
-    def _record(self, name: str, t0: float, devices=None) -> None:
-        for dev in devices or [self.device]:
-            if dev.type == "cuda":
-                torch.cuda.synchronize(dev)
-        dt = time.perf_counter() - t0
+    def _record(self, name: str, t0: float, request, devices=None) -> None:
+        """Wait for the devices (``entry.sync``), then record the call's
+        seconds since ``t0`` and end its ``request`` span there."""
+        with span("entry.sync"):
+            for dev in devices or [self.device]:
+                if dev.type == "cuda":
+                    torch.cuda.synchronize(dev)
+        t1 = time.perf_counter()
+        request.stop(t1)
+        dt = t1 - t0
         self.timings.record(name, dt)
         self.metrics[f"{name}_s"] = round(dt, 6)
 
@@ -209,10 +223,11 @@ class StereoEngine:
         """Full-resolution two-axis disparity for an RGB pair
         (MatchGPULib.cpp:303 ``match`` with fov=0)."""
         t0 = time.perf_counter()
-        left, right, (h, w) = self._pair(left, right)
-        trip = self._run("match", lambda lft, rgt: self._match_impl(
-            lft, rgt, height=h, width=w), (left, right))
-        self._record("match", t0)
+        with span(REQUEST, pairs=1, start=t0) as request:
+            left, right, (h, w) = self._pair(left, right)
+            trip = self._run("match", lambda lft, rgt: self._match_impl(
+                lft, rgt, height=h, width=w), (left, right))
+            self._record("match", t0, request)
         return MatchResult(trip[0], trip[1], trip[2])
 
     def match_foveated(self, left, right) -> FoveatedStackResult:
@@ -220,12 +235,13 @@ class StereoEngine:
         matchStackPyramid, MatchGPULib.cpp:534, with the node's stack
         layout, UG_GPU_matcher.cpp:163-369)."""
         t0 = time.perf_counter()
-        left, right, (h, w) = self._pair(left, right)
-        _check_fovea(self.config, h, w)
-        stacks, stack_l, stack_r = self._run(
-            "match_foveated", self._foveated_impl, (left, right))
+        with span(REQUEST, pairs=1, start=t0) as request:
+            left, right, (h, w) = self._pair(left, right)
+            _check_fovea(self.config, h, w)
+            stacks, stack_l, stack_r = self._run(
+                "match_foveated", self._foveated_impl, (left, right))
+            self._record("match_foveated", t0, request)
         fov_h, fov_w = self.config.fovea_dims(h, w)
-        self._record("match_foveated", t0)
         return FoveatedStackResult(
             stack_h=stacks[0], stack_v=stacks[1], stack_c=stacks[2],
             stack_left=stack_l, stack_right=stack_r, im_width=w,
@@ -248,15 +264,17 @@ class StereoEngine:
         fovea and a coarser periphery (match(fov=1),
         MatchGPULib.cpp:355-360 -> hierarchicalDisparity, :2589)."""
         t0 = time.perf_counter()
-        left, right, (h, w) = self._pair(left, right)
-        _check_fovea(self.config, h, w)
+        with span(REQUEST, pairs=1, start=t0) as request:
+            left, right, (h, w) = self._pair(left, right)
+            _check_fovea(self.config, h, w)
 
-        def impl(lft, rgt):
-            levels, _, _ = match_mod.match_foveated_pair(
-                lft, rgt, self.config, self.resident_max_pixels)
-            return pyr.hierarchical_disparity(levels, self.config, (h, w))
-        trip = self._run("match_hierarchical", impl, (left, right))
-        self._record("match_hierarchical", t0)
+            def impl(lft, rgt):
+                levels, _, _ = match_mod.match_foveated_pair(
+                    lft, rgt, self.config, self.resident_max_pixels)
+                return pyr.hierarchical_disparity(levels, self.config,
+                                                  (h, w))
+            trip = self._run("match_hierarchical", impl, (left, right))
+            self._record("match_hierarchical", t0, request)
         return MatchResult(trip[0], trip[1], trip[2])
 
     def match_batch(self, left_batch, right_batch, mesh=None,
@@ -287,25 +305,27 @@ class StereoEngine:
         from ug_stereomatcher_tpu_torch.parallel.mesh import mesh_key
 
         t0 = time.perf_counter()
-        key = (mesh_key(mesh), bool(foveated))
-        with self._graphs_lock:
-            fn = self.matchers.get(key)
-            if fn is None:
-                fn = self.matchers[key] = make_batch_matcher(
-                    self.config, mesh, self.device, foveated)
-        dev = self.device if mesh is None else mesh.local_devices()[0]
-        lb = _on_device(left_batch, dev, 4)
-        rb = _on_device(right_batch, dev, 4)
-        if lb.shape != rb.shape:
-            raise ValueError(f"batch shapes differ: {tuple(lb.shape)} vs "
-                             f"{tuple(rb.shape)}")
-        h, w = lb.shape[-2:]
-        if foveated:
-            _check_fovea(self.config, h, w)
-        out = fn(lb, rb)
-        self.metrics["match_batch_route"] = fn.route
-        self._record("match_batch", t0,
-                     None if mesh is None else mesh.local_devices())
+        with span(REQUEST, pairs=len(left_batch), start=t0) as request:
+            key = (mesh_key(mesh), bool(foveated))
+            with self._graphs_lock:
+                fn = self.matchers.get(key)
+                if fn is None:
+                    fn = self.matchers[key] = make_batch_matcher(
+                        self.config, mesh, self.device, foveated)
+            dev = self.device if mesh is None else mesh.local_devices()[0]
+            with span("entry.upload", device=dev):
+                lb = _on_device(left_batch, dev, 4)
+                rb = _on_device(right_batch, dev, 4)
+            if lb.shape != rb.shape:
+                raise ValueError(f"batch shapes differ: {tuple(lb.shape)} "
+                                 f"vs {tuple(rb.shape)}")
+            h, w = lb.shape[-2:]
+            if foveated:
+                _check_fovea(self.config, h, w)
+            out = fn(lb, rb)
+            self.metrics["match_batch_route"] = fn.route
+            self._record("match_batch", t0, request,
+                         None if mesh is None else mesh.local_devices())
         if foveated:
             fov_h, fov_w = self.config.fovea_dims(h, w)
             return FoveatedStackResult(
@@ -454,8 +474,9 @@ class StereoEngine:
     def _pair(self, left, right):
         """Both images as (3, H, W) views on the engine's device in their
         own dtype (``_run`` casts them), and (H, W)."""
-        left = _on_device(left, self.device, 3)
-        right = _on_device(right, self.device, 3)
+        with span("entry.upload", device=self.device):
+            left = _on_device(left, self.device, 3)
+            right = _on_device(right, self.device, 3)
         _check_pair(left, right)
         return left, right, tuple(left.shape[-2:])
 

@@ -14,6 +14,11 @@ clones of its static outputs, so a result is never overwritten by a
 later call, as a JAX array never is.  The kernels, their arguments and
 their order are the eager call's, so the results are bit-equal to it.
 
+While tracing is on, ``load``, the replay and ``__call__``'s clones are
+the spans ``graph.load``, ``graph.replay`` and ``graph.clone`` (timed on
+the device), and a capture is ``graph.capture``; spans stay outside what
+is captured.  ``_build.graph_captures()`` counts the captures.
+
 A replay launches no wrapper, so it counts what its capture counted:
 ``_build.record_replay`` adds the capture's launches to the counters
 (and counts the replay) and ``match.add_iterations`` adds early exit's
@@ -60,6 +65,7 @@ import torch
 
 from ug_stereomatcher_tpu_torch import match as match_mod
 from ug_stereomatcher_tpu_torch.ops.cuda import _build
+from ug_stereomatcher_tpu_torch.profiling import span
 
 
 def graph_key(entry: str, shape: Sequence[int], config,
@@ -110,6 +116,11 @@ class CapturedCall:
         self._lock = threading.Lock()
 
     def _capture(self) -> None:
+        with span("graph.capture"):
+            self._warm_and_capture()
+        _build.record_capture()
+
+    def _warm_and_capture(self) -> None:
         t0 = time.perf_counter()
         cards = (self.device,) + self.peers
         _peer_access(cards)
@@ -174,11 +185,13 @@ class CapturedCall:
         """Copy ``sources`` (tensors on any CUDA device, each broadcastable
         to its static input; the copy casts) into the static inputs, on
         the current streams; a source that is its static input is not
-        copied."""
+        copied.  Its ``graph.load`` span times the sources' cards, whose
+        streams carry the copies."""
         if len(sources) != len(self.inputs):
             raise ValueError(f"expected {len(self.inputs)} inputs, got "
                              f"{len(sources)}")
-        with torch.cuda.device(self.device):
+        with span("graph.load", device=sources), \
+                torch.cuda.device(self.device):
             for static, src in zip(self.inputs, sources):
                 if src is not static:
                     static.copy_(src)
@@ -190,7 +203,8 @@ class CapturedCall:
         with torch.cuda.device(self.device):
             if self.graph is None:
                 self._capture()
-            self.graph.replay()
+            with span("graph.replay", device=self.device):
+                self.graph.replay()
         _build.record_replay(self.launches)
         match_mod.add_iterations(self.iterations)
         return self.outputs
@@ -200,7 +214,9 @@ class CapturedCall:
         with self._lock:
             self.load(*sources)
             with torch.cuda.device(self.device):
-                out = tuple(t.clone() for t in self.replay())
+                outputs = self.replay()
+                with span("graph.clone", device=self.device):
+                    out = tuple(t.clone() for t in outputs)
         return out[0] if self.single else out
 
 

@@ -23,7 +23,8 @@ counts under its usual name, whether or not the flag lets it run.  A
 CUDA graph (``graphs.CapturedCall``) counts its warm-up and capture into
 counters of its own (``counting_into``) and adds the capture's counts
 on each replay (``record_replay``), so the counts after a replay are
-those of the eager call; ``graph_replays`` counts the replays.
+those of the eager call; ``graph_replays`` counts the replays and
+``graph_captures`` the captures.
 """
 
 from __future__ import annotations
@@ -85,6 +86,7 @@ QUERIES = {
 
 LAUNCHES: Dict[str, int] = collections.Counter()
 _REPLAYS = [0]
+_CAPTURES = [0]
 # this thread's counter while it warms up or captures a CUDA graph
 _LOCAL = threading.local()
 _LIB: Optional[ctypes.CDLL] = None
@@ -222,9 +224,15 @@ def record_replay(counts: Dict[str, int]) -> None:
     _REPLAYS[0] += 1
 
 
+def record_capture() -> None:
+    """Count one CUDA graph captured."""
+    _CAPTURES[0] += 1
+
+
 def reset_launch_counts() -> None:
     LAUNCHES.clear()
     _REPLAYS[0] = 0
+    _CAPTURES[0] = 0
 
 
 def launch_counts() -> Dict[str, int]:
@@ -234,6 +242,12 @@ def launch_counts() -> Dict[str, int]:
 def graph_replays() -> int:
     """CUDA graph replays since the last ``reset_launch_counts()``."""
     return _REPLAYS[0]
+
+
+def graph_captures() -> int:
+    """CUDA graphs captured since the last ``reset_launch_counts()``: a
+    key's first call captures, so in a steady loop this stays 0."""
+    return _CAPTURES[0]
 
 
 def check_planes(name: str, *tensors: torch.Tensor) -> torch.device:

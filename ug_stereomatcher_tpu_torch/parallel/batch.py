@@ -36,7 +36,12 @@ first card and of the results onto the mesh's first device, and the
 all-gather across processes, stay outside the graphs; every graph is
 replayed before any result is copied back, so the cards run together.
 Only CPU devices, or ``capture=False``, run eagerly, and the matcher's
-``route`` names what its last call ran.
+``route`` names what its last call ran.  While tracing is on
+(profiling.py) the copies onto the groups' cards, the replays, the
+copies back and the all-gather are the spans ``mesh.scatter``,
+``mesh.replay``, ``mesh.gather`` and ``mesh.all_gather``; the copies
+are timed on the stream of the batch's card, which carries them or
+orders them.
 """
 
 from __future__ import annotations
@@ -62,6 +67,7 @@ from ug_stereomatcher_tpu_torch.parallel.spatial import (
     on_device,
     warn_fixed_schedule,
 )
+from ug_stereomatcher_tpu_torch.profiling import span
 
 # a graph's card (a group on one card) or a group's cards (several)
 CardKey = Union[torch.device, Tuple[torch.device, ...]]
@@ -132,6 +138,23 @@ def _take(x: torch.Tensor, idx: List[int]) -> torch.Tensor:
     if idx == list(range(x.shape[0])):
         return x
     return torch.stack([x[i] for i in idx])
+
+
+def _through_graphs(calls, lb, rb, share, at) -> None:
+    """Each graph's pairs loaded onto its card, every graph replayed,
+    then each result copied into its row of ``share``."""
+    # the copies off the batch's card run on its stream
+    with span("mesh.scatter", device=lb):
+        for call, idx in calls:
+            call.load(_take(lb, idx), _take(rb, idx))
+    # every card's replay before any copy back: the cards overlap
+    with span("mesh.replay"):
+        outs = [call.replay() for call, _ in calls]
+    # timed on the share's card, whose stream each copy joins
+    with span("mesh.gather", device=share):
+        for (_, idx), (out,) in zip(calls, outs):
+            for k, i in enumerate(idx):
+                share[at[i]].copy_(out[k])
 
 
 def make_batch_matcher(cfg: MatcherConfig, mesh: Optional[Mesh] = None,
@@ -275,18 +298,22 @@ class BatchMatcher:
             calls = [(self._call_on(card, (len(idx),) + shape[1:],
                                     self._card_fn(card, idx)), idx)
                      for card, idx in cards.items()]
-            for call, idx in calls:
-                call.load(_take(lb, idx), _take(rb, idx))
-            # every card's replay before any copy back: the cards overlap
-            outs = [call.replay() for call, _ in calls]
-            for (_, idx), (out,) in zip(calls, outs):
-                for k, i in enumerate(idx):
-                    share[at[i]].copy_(out[k])
+            if calls:
+                _through_graphs(calls, lb, rb, share, at)
         for i in eager:
-            share[at[i]] = self._on_group(lb[i], rb[i], i % p, self.device)
+            dev = mesh.devices[i % p][0]
+            with span("mesh.scatter", device=lb):
+                left, right = lb[i].to(dev), rb[i].to(dev)
+            res = self._on_group(left, right, i % p, dev)
+            with span("mesh.gather", device=share):
+                share[at[i]] = res
         self.route = ("graph+eager" if cards and eager
                       else "graph" if cards else "eager")
-        parts = _all_gather(share) if self._gathers else share[None]
+        if self._gathers:
+            with span("mesh.all_gather", device=share):
+                parts = _all_gather(share)
+        else:
+            parts = share[None]
         if len(self._ranks) == 1:
             return parts[0]
         out = share.new_empty((b,) + tuple(share.shape[1:]))
