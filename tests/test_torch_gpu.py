@@ -1622,3 +1622,182 @@ def test_graph_captures_count_one_a_key(cuda):
         eng.match(left, right)
         eng.match_foveated(left, right)
     assert _build.graph_captures() == 0 and _build.graph_replays() == 4
+
+
+# ------------------------------------------------------ the staged upload
+def staged_cases():
+    """(host array, ndim for _on_device or None) by case: the ring's
+    chunk plan below a slot, at one slot, over many slots with a
+    remainder and at zero bytes, a 16 MP image and a 4-pair batch."""
+    from ug_stereomatcher_tpu_torch.staging import SLOT_BYTES
+    rng = np.random.default_rng(7)
+
+    def u8(*shape):
+        return rng.integers(0, 256, shape, np.uint8)
+    return {"under_a_slot": (u8(SLOT_BYTES - 1), None),
+            "one_slot": (u8(SLOT_BYTES), None),
+            "many_slots_and_a_remainder": (u8(5 * SLOT_BYTES + 7), None),
+            "zero_bytes": (u8(0, 4928, 3), 3),
+            "16mp": (u8(3264, 4928, 3), 3),
+            "batch4": (u8(4, 816, 1232, 3), 4)}
+
+
+STAGED = ["under_a_slot", "one_slot", "many_slots_and_a_remainder",
+          "zero_bytes", "16mp", "batch4"]
+
+
+@pytest.mark.parametrize("copiers", [1, 4, 8])
+@pytest.mark.parametrize("case", STAGED)
+def test_staged_upload_equals_plain_copy(cuda, case, copiers):
+    """The ring's upload, with 1, 4 or 8 copy threads, equals ``torch.from_numpy(a).to(card)`` byte for byte, in shape and
+    dtype, at every chunk-plan case, and counts its bytes as staged;
+    through the engine's ``_on_device`` too, channels first."""
+    from ug_stereomatcher_tpu_torch.engine import _on_device
+    from ug_stereomatcher_tpu_torch.staging import StagingRing
+    a, ndim = staged_cases()[case]
+    eng = StereoEngine(device="cuda")
+    want = torch.from_numpy(a).to(cuda)
+    ring = StagingRing(torch.device("cuda", torch.cuda.current_device()),
+                       copiers=copiers)
+    _build.reset_launch_counts()
+    got = ring.upload(torch.from_numpy(a))
+    assert got.device.type == "cuda" and got.dtype == want.dtype
+    assert got.shape == want.shape and torch.equal(got, want)
+    assert _build.upload_bytes() == {"staged": a.nbytes, "pinned": 0}
+    if ndim is not None:
+        view = _on_device(a, cuda, ndim, eng._ring)
+        assert torch.equal(view, want.movedim(-1, ndim - 3))
+
+
+@pytest.mark.parametrize("copiers", [1, 8])
+def test_staged_uploads_back_to_back_both_intact(cuda, copiers):
+    """Two arrays uploaded with no synchronise between them, the second
+    reusing every slot the first used, both arrive intact; and a third
+    upload after the first array is overwritten changes neither."""
+    from ug_stereomatcher_tpu_torch.staging import StagingRing
+    ring = StagingRing(torch.device("cuda", torch.cuda.current_device()),
+                       copiers=copiers)
+    a, b = (np.random.default_rng(s).integers(0, 256, (3264, 4928, 3),
+                                              np.uint8) for s in (1, 2))
+    keep_a, keep_b = a.copy(), b.copy()
+    ga = ring.upload(torch.from_numpy(a))
+    gb = ring.upload(torch.from_numpy(b))
+    a[:] = 0                     # the caller reuses its buffer at once
+    gc = ring.upload(torch.from_numpy(a))
+    torch.cuda.synchronize()
+    assert torch.equal(ga.cpu(), torch.from_numpy(keep_a))
+    assert torch.equal(gb.cpu(), torch.from_numpy(keep_b))
+    assert int(gc.max()) == 0
+
+
+def test_caller_overwrites_its_array_as_match_returns(cuda):
+    """A fresh array each call and one array reused go through the same
+    path (the same staged bytes, nothing pinned), and overwriting the
+    arrays as soon as match returns leaves the result equal to a match
+    of the originals."""
+    cfg = MatcherConfig(fovea_level=3)
+    eng = StereoEngine(cfg, device="cuda")
+    left, right = scene.make_pair(GH, GW)
+    want = eager_call(cuda, "match", cfg, None, (left, right))
+    counts, results = [], []
+    for fresh in (False, False, True, True):
+        lft, rgt = (left.copy(), right.copy()) if fresh else (left, right)
+        _build.reset_launch_counts()
+        res = eng.match(lft, rgt)
+        counts.append(_build.upload_bytes())
+        if fresh:
+            lft[:] = 0
+            rgt[:] = 255
+        results.append(res.triplet.clone())
+    assert counts == [{"staged": left.nbytes + right.nbytes,
+                       "pinned": 0}] * 4
+    for got in results:
+        assert_bits(got, want)
+
+
+def test_pinned_and_card_tensors_are_not_staged(cuda):
+    """A pinned CPU tensor takes one direct copy and a tensor on the card
+    none, as the counter shows; every route gives the same match."""
+    cfg = MatcherConfig(fovea_level=3)
+    eng = StereoEngine(cfg, device="cuda")
+    left, right = scene.make_pair(GH, GW)
+    want = eager_call(cuda, "match", cfg, None, (left, right))
+    nbytes = left.nbytes + right.nbytes
+    routes = {
+        "pinned": ((torch.from_numpy(left).pin_memory(),
+                    torch.from_numpy(right).pin_memory()),
+                   {"staged": 0, "pinned": nbytes}),
+        "card": ((torch.from_numpy(left).to(cuda),
+                  torch.from_numpy(right).to(cuda)),
+                 {"staged": 0, "pinned": 0}),
+        "host": ((torch.from_numpy(left), torch.from_numpy(right)),
+                 {"staged": nbytes, "pinned": 0}),
+    }
+    for name, (pair, count) in routes.items():
+        _build.reset_launch_counts()
+        got = eng.match(*pair).triplet
+        assert _build.upload_bytes() == count, name
+        assert_bits(got, want)
+
+
+def test_two_threads_upload_to_one_card(cuda):
+    """Two threads upload distinct 16 MP images through one engine's ring
+    at once, many times, switching often: every upload arrives intact."""
+    import sys
+    import threading
+
+    from ug_stereomatcher_tpu_torch.engine import _on_device
+    eng = StereoEngine(device="cuda")
+    images = [np.full((3264, 4928, 3), v, np.uint8) for v in (17, 201)]
+    errors = []
+
+    def worker(img):
+        try:
+            for _ in range(12):
+                got = _on_device(img, cuda, 3, eng._ring)
+                torch.cuda.current_stream(cuda).synchronize()
+                lo, hi = int(got.min()), int(got.max())
+                if (lo, hi) != (int(img[0, 0, 0]),) * 2:
+                    errors.append((lo, hi))
+        except Exception as exc:  # reported below
+            errors.append(repr(exc))
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)
+    try:
+        threads = [threading.Thread(target=worker, args=(img,))
+                   for img in images]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+    finally:
+        sys.setswitchinterval(old)
+    assert not any(t.is_alive() for t in threads)
+    assert errors == []
+    assert len(eng._rings) == 1
+
+
+@pytest.mark.parametrize("entry", ["match", "match_foveated", "match_batch",
+                                   "match_batch_mesh"])
+def test_staged_entry_points_equal_the_eager_path(cuda, entry):
+    """match, match_foveated, match_batch and a 2 x 1 mesh batch from host
+    arrays (staged) equal the eager module path on inputs copied with a
+    plain ``.to``, bit for bit, with every input byte staged."""
+    from ug_stereomatcher_tpu_torch.parallel.batch import make_batch_matcher
+    cfg = MatcherConfig(fovea_level=3)
+    eng = StereoEngine(cfg, device="cuda")
+    batch = entry.startswith("match_batch")
+    inputs = graph_inputs("match_batch" if batch else entry, 3)
+    mesh = (par.make_mesh(2, 1, devices=[cuda] * 2)
+            if entry == "match_batch_mesh" else None)
+    _build.reset_launch_counts()
+    if mesh is None:
+        got = engine_call(eng, entry, inputs)
+        want = eager_call(cuda, entry, cfg, None, inputs)
+    else:
+        got = batch_planes(eng.match_batch(*inputs, mesh=mesh), False)
+        want = make_batch_matcher(cfg, mesh, capture=False)(
+            *(torch.stack([chw(cuda, x) for x in b]) for b in inputs))
+    staged = _build.upload_bytes()
+    assert staged == {"staged": sum(x.nbytes for x in inputs), "pinned": 0}
+    assert_bits(got, want)

@@ -49,6 +49,7 @@ from ug_stereomatcher_tpu_torch.config import MatcherConfig, check_supported
 from ug_stereomatcher_tpu_torch.device import DTYPE, resolve_device
 from ug_stereomatcher_tpu_torch.graphs import CapturedCall, graph_key
 from ug_stereomatcher_tpu_torch.profiling import REQUEST, Timings, span
+from ug_stereomatcher_tpu_torch.staging import StagingRing
 
 
 @dataclasses.dataclass
@@ -102,16 +103,25 @@ class FoveatedStackResult:
         return stack[..., base:base + 3 * h, :].unflatten(-2, (3, h))
 
 
-def _on_device(image, device: torch.device, ndim: int) -> torch.Tensor:
+def _on_device(image, device: torch.device, ndim: int,
+               ring_of: Optional[Callable[[torch.device], StagingRing]] = None
+               ) -> torch.Tensor:
     """An ``ndim``-D image or batch, channels last or first, as a
     channels-first view on ``device`` in its own dtype: the copy to the
-    device happens before any cast, so uint8 crosses the bus."""
+    device happens before any cast, so uint8 crosses the bus.  Host
+    memory bound for a card goes through the card's staging ring,
+    ``ring_of(device)``, where ``ring_of`` is given; anything else moves
+    as ``.to`` moves it."""
     arr = image if isinstance(image, torch.Tensor) else torch.from_numpy(
         np.ascontiguousarray(image))
     if arr.ndim != ndim:
         what = "3-D RGB image" if ndim == 3 else "a 4-D batch"
         raise ValueError(f"expected {what}, got shape {tuple(arr.shape)}")
-    arr = arr.to(device)
+    if (ring_of is not None and arr.device.type == "cpu"
+            and device.type == "cuda"):
+        arr = ring_of(device).upload(arr)
+    else:
+        arr = arr.to(device)
     c = ndim - 3
     if arr.shape[c] != 3 and arr.shape[-1] == 3:
         arr = arr.movedim(-1, c)
@@ -153,6 +163,8 @@ class StereoEngine:
     ``graph.replay`` and ``graph.clone`` (graphs.py) or the mesh's spans
     (parallel/batch.py) and ``entry.sync`` (the final synchronise)
     inside it (profiling.py).
+    Host arrays bound for a card go through the engine's staging ring
+    of that card (staging.py), pinned at its first upload.
     ``resident_max_pixels`` is a measurement-only override of the
     level-resident gate of match.match_level, for timing both routes of
     one match (None, the default for every workload: the size-derived
@@ -183,6 +195,20 @@ class StereoEngine:
         self.matchers: Dict[tuple, object] = {}
         self._graphs_lock = threading.Lock()
         self._profile_lock = threading.Lock()
+        self._rings: Dict[torch.device, StagingRing] = {}
+
+    def _ring(self, device: torch.device) -> StagingRing:
+        """The engine's staging ring of card ``device``, made at its first
+        upload (``"cuda"``: the current card)."""
+        if device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
+        ring = self._rings.get(device)
+        if ring is None:
+            with self._graphs_lock:
+                ring = self._rings.get(device)
+                if ring is None:
+                    ring = self._rings[device] = StagingRing(device)
+        return ring
 
     def _graph(self, key: tuple, impl: Callable[..., object],
                inputs: Sequence) -> CapturedCall:
@@ -314,8 +340,8 @@ class StereoEngine:
                         self.config, mesh, self.device, foveated)
             dev = self.device if mesh is None else mesh.local_devices()[0]
             with span("entry.upload", device=dev):
-                lb = _on_device(left_batch, dev, 4)
-                rb = _on_device(right_batch, dev, 4)
+                lb = _on_device(left_batch, dev, 4, self._ring)
+                rb = _on_device(right_batch, dev, 4, self._ring)
             if lb.shape != rb.shape:
                 raise ValueError(f"batch shapes differ: {tuple(lb.shape)} "
                                  f"vs {tuple(rb.shape)}")
@@ -475,8 +501,8 @@ class StereoEngine:
         """Both images as (3, H, W) views on the engine's device in their
         own dtype (``_run`` casts them), and (H, W)."""
         with span("entry.upload", device=self.device):
-            left = _on_device(left, self.device, 3)
-            right = _on_device(right, self.device, 3)
+            left = _on_device(left, self.device, 3, self._ring)
+            right = _on_device(right, self.device, 3, self._ring)
         _check_pair(left, right)
         return left, right, tuple(left.shape[-2:])
 

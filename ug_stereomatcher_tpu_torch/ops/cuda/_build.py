@@ -24,7 +24,8 @@ CUDA graph (``graphs.CapturedCall``) counts its warm-up and capture into
 counters of its own (``counting_into``) and adds the capture's counts
 on each replay (``record_replay``), so the counts after a replay are
 those of the eager call; ``graph_replays`` counts the replays and
-``graph_captures`` the captures.
+``graph_captures`` the captures.  ``upload_bytes`` counts the host bytes
+the engine's uploads moved to a card, by route (staging.py).
 """
 
 from __future__ import annotations
@@ -87,6 +88,9 @@ QUERIES = {
 LAUNCHES: Dict[str, int] = collections.Counter()
 _REPLAYS = [0]
 _CAPTURES = [0]
+# host bytes uploaded to a card, by route: "staged" or "pinned"
+_UPLOADS: Dict[str, int] = collections.Counter()
+_UPLOADS_LOCK = threading.Lock()
 # this thread's counter while it warms up or captures a CUDA graph
 _LOCAL = threading.local()
 _LIB: Optional[ctypes.CDLL] = None
@@ -229,10 +233,18 @@ def record_capture() -> None:
     _CAPTURES[0] += 1
 
 
+def record_upload(route: str, nbytes: int) -> None:
+    """Count ``nbytes`` of host memory uploaded to a card by ``route``."""
+    with _UPLOADS_LOCK:
+        _UPLOADS[route] += nbytes
+
+
 def reset_launch_counts() -> None:
     LAUNCHES.clear()
     _REPLAYS[0] = 0
     _CAPTURES[0] = 0
+    with _UPLOADS_LOCK:
+        _UPLOADS.clear()
 
 
 def launch_counts() -> Dict[str, int]:
@@ -248,6 +260,15 @@ def graph_captures() -> int:
     """CUDA graphs captured since the last ``reset_launch_counts()``: a
     key's first call captures, so in a steady loop this stays 0."""
     return _CAPTURES[0]
+
+
+def upload_bytes() -> Dict[str, int]:
+    """Host bytes uploaded to a card since the last
+    ``reset_launch_counts()``, by route: ``staged`` through an engine's
+    pinned ring, ``pinned`` copied straight from a caller's pinned
+    tensor.  Tensors already on a card, and the CPU engine, count none."""
+    with _UPLOADS_LOCK:
+        return {"staged": _UPLOADS["staged"], "pinned": _UPLOADS["pinned"]}
 
 
 def check_planes(name: str, *tensors: torch.Tensor) -> torch.device:
