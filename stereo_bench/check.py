@@ -16,6 +16,16 @@ every part of every sampled answer (a NaN agrees only with a NaN):
   moves a few regions into another match, so it swings from seed to
   seed to within three times of the control's (PERF.md).
 
+In an early-exit configuration one more number, for each sampled call:
+
+* ``iterations_gap``: |program - reference| in the iterations that the
+  early-exit levels ran, the program's read from its own counter
+  (``match.iterations_run()`` before and after the call), the
+  reference's summed over the call's pairs (``iterations_of``).  A change
+  of the convergence test's sums within rounding flips a level whose
+  change lies within about 1e-6 of the threshold by one iteration; an
+  exit at another threshold moves every level.
+
 Each number is the worst over the parts and answers.  The limits are the
 configuration file's ``limits``, set from the readings of
 ``stereo_bench.control``: the sound float32 variants of
@@ -32,6 +42,7 @@ import torch
 
 FAR_PX = 1.0
 NUMBERS = ("far_share_px", "mean_abs_conf", "mean_abs_grey", "mean_abs_px")
+ITERATIONS_GAP = "iterations_gap"
 
 
 def parts(answer: Mapping[str, torch.Tensor], levels: int
@@ -82,14 +93,24 @@ def compare(answer: Mapping[str, torch.Tensor],
     return worst
 
 
+def iterations_of(answer: Mapping[str, object]) -> int:
+    """The iterations that a reference answer's early-exit levels ran."""
+    return sum(answer["iterations"][i] for i in answer["exit_levels"])
+
+
+def iterations_gap(program: int, reference: int) -> float:
+    """|program - reference| in the iterations of the early-exit levels."""
+    return float(abs(int(program) - int(reference)))
+
+
 def judge(readings: List[Dict[str, float]], limits: Mapping[str, float]
           ) -> Tuple[bool, Dict[str, Dict[str, float]]]:
     """(correct, {number: {"value", "limit"}}) over every answer's
-    readings, for each number that ``limits`` names; no answer is not
-    correct."""
+    readings that hold it, for each number that ``limits`` names; no
+    answer, or a number that no answer holds, is not correct."""
     out = {}
     for n, limit in limits.items():
-        value = _worst([r[n] for r in readings])
+        value = _worst([r[n] for r in readings if n in r])
         out[n] = {"value": value, "limit": float(limit)}
     ok = bool(readings) and all(
         np.isfinite(v["value"]) and v["value"] <= v["limit"]

@@ -10,10 +10,13 @@ tensors already on the card), to the public entry point and is timed on the host
 clock until the call returns (the engine synchronises its cards before
 it returns).  A few requests drawn from the seed are sampled (in a
 batch call, one pair from each of a few equal strata of the batch):
-their answers go to host memory with the window's clock paused.  After the
-window the peak memory is read, the engine is freed, and the plain
-reference (stereo_bench/reference) recomputes each sampled answer from
-the same pool entry on the card.
+their answers go to host memory with the window's clock paused.  In an
+early-exit configuration the program's count of early-exit iterations
+(``match.iterations_run()``) is read before and after each sampled
+request, with the clock paused too.  After the window the peak memory is
+read, the engine is freed, and the plain reference
+(stereo_bench/reference) recomputes each sampled answer from the same
+pool entry on the card.
 """
 
 from __future__ import annotations
@@ -137,15 +140,26 @@ def _power_limit() -> Optional[str]:
     return p.stdout.strip().splitlines()[0] if p.returncode == 0 else None
 
 
+def _iteration_counter(cfg: dict) -> Optional[Callable[[], int]]:
+    """The program's count of early-exit iterations, in an early-exit
+    configuration where the program has one."""
+    if cfg["matcher"]["early_exit_delta"] is None:
+        return None
+    from ug_stereomatcher_tpu_torch import match as program_match
+    return getattr(program_match, "iterations_run", None)
+
+
 def run(workload: str, seed: int, seconds: float, traced: bool, *,
         t0: Optional[float] = None, root=spec.ROOT,
         device: Optional[str] = None, overrides: Optional[dict] = None,
-        log=print) -> dict:
+        program_fields: Optional[dict] = None, log=print) -> dict:
     """One run of cell ``workload``; returns the result line's object.
 
     ``device`` ("cpu") and ``overrides`` (keys merged into the traffic
     mix, such as a small ``frame``) are for the tests: they skip the look
-    for a card and run the plain versions."""
+    for a card and run the plain versions.  ``program_fields`` (matcher
+    fields merged into the program's configuration alone; the reference
+    keeps the cell's) is for the control (stereo_bench.control)."""
     t0 = time.perf_counter() if t0 is None else t0
     cell = spec.load(workload, root)
     cell.traffic.update(overrides or {})
@@ -175,7 +189,9 @@ def run(workload: str, seed: int, seconds: float, traced: bool, *,
             torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats(c)
     t_pool = time.perf_counter()
-    engine = StereoEngine(MatcherConfig(**cfg["matcher"]), device=cards[0])
+    engine = StereoEngine(MatcherConfig(**{**cfg["matcher"],
+                                           **(program_fields or {})}),
+                          device=cards[0])
     call = _entry(cell, engine, cards)
     for i in range(int(traffic["warmup_calls"])):
         call(*pool[i % n_pool])
@@ -188,11 +204,15 @@ def run(workload: str, seed: int, seconds: float, traced: bool, *,
 
     sample_at = sampled(traffic, seed)
     kept: Dict[int, List[Dict[str, np.ndarray]]] = {}
+    count_iterations = _iteration_counter(cfg)
+    iterations_at: Dict[int, int] = {}
     lat: List[float] = []
+    done: List[float] = []   # each request's end on the window's clock
     failed = 0
     mark = trace.annotate if traced else (lambda name: contextlib.nullcontext())
     gc.collect()
     _build.reset_launch_counts()
+    iterations_open = count_iterations() if count_iterations else None
     with trace.profiled(traced and on_card) as prof:
         with mark(trace.WINDOW):
             paused = 0.0
@@ -200,6 +220,11 @@ def run(workload: str, seed: int, seconds: float, traced: bool, *,
             i = 0
             while time.perf_counter() - t_open - paused < seconds:
                 lft, rgt = pool[i % n_pool]
+                if count_iterations and i in sample_at:
+                    with mark(trace.PAUSE):
+                        tp = time.perf_counter()
+                        iterations_at[i] = count_iterations()
+                        paused += time.perf_counter() - tp
                 with mark(trace.REQUEST):
                     ts = time.perf_counter()
                     try:
@@ -209,15 +234,21 @@ def run(workload: str, seed: int, seconds: float, traced: bool, *,
                         out = None
                         log(f"request {i} failed: {exc!r}", file=sys.stderr)
                     lat.append(time.perf_counter() - ts)
+                    done.append(ts + lat[-1] - t_open - paused)
                 if i in sample_at and out is not None:
                     with mark(trace.PAUSE):
                         tp = time.perf_counter()
                         kept[i] = _answers(cell, out, sample_at[i])
+                        if count_iterations:
+                            iterations_at[i] = (count_iterations()
+                                                - iterations_at[i])
                         paused += time.perf_counter() - tp
                 out = None
                 i += 1
             window_s = time.perf_counter() - t_open - paused
     launches = sum(_build.launch_counts().values())
+    iterations = (count_iterations() - iterations_open
+                  if count_iterations else None)
     peak = max(torch.cuda.max_memory_allocated(c) for c in distinct) \
         if on_card else 0
     t_ref = time.perf_counter()
@@ -233,16 +264,27 @@ def run(workload: str, seed: int, seconds: float, traced: bool, *,
 
     readings = []
     levels = int(Schedule(cfg["matcher"]).p["fovea_level"])
+    gate = cfg["guarantees"].get("exit_levels_above_px")
+    ref_iterations: Dict[int, List[int]] = {}
     for i in sorted(kept):
         pairs = _pairs_of(pool[i % n_pool], batch)
+        call_iterations = 0
         for j, got in zip(sample_at[i], kept[i]):
             lft, rgt = pairs[j]
             ref = match_pair(_chw(lft, cards[0]), _chw(rgt, cards[0]),
-                             cfg["matcher"], cell.foveated)
+                             cfg["matcher"], cell.foveated,
+                             exit_above_px=gate)
+            call_iterations += check.iterations_of(ref)
+            for lv in ref["exit_levels"]:
+                ref_iterations.setdefault(lv, []).append(
+                    ref["iterations"][lv])
             ref = {k: v for k, v in ref.items() if k in got}
             readings.append(check.compare(
                 {k: torch.from_numpy(v) for k, v in got.items()}, ref,
                 levels))
+        if i in iterations_at:
+            readings[-1][check.ITERATIONS_GAP] = check.iterations_gap(
+                iterations_at[i], call_iterations)
     missing = sorted(set(sample_at) - set(kept))
     ok, numbers = check.judge(readings, cfg["limits"])
     correct = ok and failed == 0 and not missing
@@ -264,9 +306,9 @@ def run(workload: str, seed: int, seconds: float, traced: bool, *,
             trace=tr, cards=[c.index for c in distinct],
             pairs=len(lat) * per_call, launches=launches,
             pairs_traced=tr.requests * per_call if tr else 0,
-            least_s=work.match_least_s(cfg["matcher"], cell.frame,
-                                       cell.foveated)["least_s"],
-            power_limit=power)
+            least_s=_least_s(cfg, cell,
+                             ref_iterations if readings else None),
+            iterations=iterations, power_limit=power, latencies_s=lat)
         metrics = {}
         for m in cell.per_layer:
             value = spec.reader(m["name"], cell.root)(view)
@@ -291,10 +333,36 @@ def run(workload: str, seed: int, seconds: float, traced: bool, *,
         result["breakdown"] = {"device_ops": tr.device_ops,
                                "idle_gaps": tr.idle_gaps}
     result["check"] = numbers
+    log(f"requests_per_s {per_second(done, window_s)}", file=sys.stderr)
     log(f"setup_s {setup_s:.3f} window_s {window_s:.3f} requests {len(lat)} "
         f"sampled {sorted(kept)} missing {missing} reference_s {ref_s:.3f} "
         f"trace_s {time.perf_counter() - t_tr:.3f}", file=sys.stderr)
     return result
+
+
+def _least_s(cfg: dict, cell: spec.Cell,
+             ref_iterations: Optional[Dict[int, List[int]]]
+             ) -> Optional[float]:
+    """work.match_least_s of one match; with early exit, from the mean
+    iterations that the reference ran on the sampled pairs (None where
+    it judged none)."""
+    if ref_iterations is None:
+        if cfg["matcher"]["early_exit_delta"] is not None:
+            return None
+        ref_iterations = {}
+    mean = {lv: sum(v) / len(v) for lv, v in ref_iterations.items()}
+    return work.match_least_s(cfg["matcher"], cell.frame, cell.foveated,
+                              mean)["least_s"]
+
+
+def per_second(done_s: Sequence[float], window_s: float) -> List[int]:
+    """The requests that ended in each whole second of the window (the
+    last, partial second counted with the one before it)."""
+    n = max(1, int(window_s))
+    counts = [0] * n
+    for t in done_s:
+        counts[min(n - 1, max(0, int(t)))] += 1
+    return counts
 
 
 def _chw(img, dev):

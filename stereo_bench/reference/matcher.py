@@ -15,10 +15,21 @@ here from the configuration file's ``matcher`` fields.
 float32 is the reference; bfloat16 is the lower-precision control
 (check.py).  Matrix products and cuDNN convolutions never run here, and
 TF32 is switched off all the same.
+
+Early exit (``early_exit_delta`` set) runs as the JAX package defines it
+(ug_stereomatcher_tpu/match.py:392-414, ops/convergence.py:19-38): a
+level of more than one iteration, larger than the level-resident gate
+the configuration states, loops while ``m < mi`` and ``delta >= thr``,
+``delta`` the larger of the two axes' confidence-weighted mean absolute
+change (0 where the new confidence sums to 0, and a NaN stops it),
+``thr`` the delta rounded to float32, at least one iteration.  One
+departure, on purpose: the weighted sums are accumulated in float64,
+the order closest to exact, where XLA sums in float32.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
@@ -64,8 +75,6 @@ class Schedule:
         if unknown:
             raise ValueError(f"unknown matcher fields {sorted(unknown)}")
         p = {**DEFAULTS, **fields}
-        if p["early_exit_delta"] is not None:
-            raise NotImplementedError("the reference runs the fixed schedule")
         if p["interp"] not in ("nearest", "bilinear"):
             raise ValueError(f"interp {p['interp']!r}")
         self.p = p
@@ -90,6 +99,25 @@ class Schedule:
 
     def fovea_dims(self, h: int, w: int) -> Tuple[int, int]:
         return self.dims_chain(h, w)[int(self.p["fovea_level"]) - 1]
+
+    @property
+    def exit_threshold(self) -> Optional[float]:
+        """The early-exit threshold rounded to float32, or None (the fixed
+        schedule)."""
+        delta = self.p["early_exit_delta"]
+        return None if delta is None else float(np.float32(delta))
+
+    def exits(self, i: int, px: int, above_px: Optional[int]) -> bool:
+        """Whether level ``i`` of ``px`` pixels may exit early: early exit
+        is on, the level has more than one iteration and is larger than
+        the level-resident gate ``above_px`` (the levels within it run
+        their full schedule, as the JAX package's level kernel does)."""
+        if self.exit_threshold is None:
+            return False
+        if above_px is None:
+            raise ValueError("an early-exit schedule needs the gate of the "
+                             "levels that may exit")
+        return self.iters(i) > 1 and px > above_px
 
     def iters(self, i: int) -> int:
         """MatchGPULib.cpp:1741."""
@@ -360,27 +388,63 @@ def _upsample(disp, out_h, out_w, s: Schedule, **win) -> torch.Tensor:
     return up
 
 
-def match_level(left, right, disp, i: int, s: Schedule,
-                coarsest: bool) -> torch.Tensor:
-    """One level's fixed schedule: warp, update, smooth per iteration."""
+def weighted_difference(new: torch.Tensor, old: torch.Tensor,
+                        conf: torch.Tensor) -> float:
+    """sum(|new - old| * conf) / sum(conf), each product rounded in the
+    planes' dtype and both sums accumulated in float64; 0 where sum(conf)
+    is not > 0 (weightedDifference, MatchGPULib.cpp:1336-1437)."""
+    num = ((new - old).abs() * conf).double().sum().item()
+    den = conf.double().sum().item()
+    return num / den if den > 0.0 else 0.0
+
+
+def changed_enough(dh: float, dv: float, thr: float) -> bool:
+    """The JAX loop's condition ``max(dh, dv) >= thr``: a NaN in either
+    carries through the max and stops the level."""
+    if math.isnan(dh) or math.isnan(dv):
+        return False
+    return max(dh, dv) >= thr
+
+
+def match_level(left, right, disp, i: int, s: Schedule, coarsest: bool,
+                exits: bool = False) -> Tuple[torch.Tensor, int]:
+    """One level: warp, update, smooth per iteration, over the fixed
+    schedule or, where the level ``exits``, until an iteration changes
+    the disparity by less than the threshold.  Returns (the level's
+    triplet, the iterations run)."""
     bl2 = blur(left * left, GAUSS, "clamp")
     n_smooth = s.passes(i)
+    thr = s.exit_threshold
     state = disp
-    for m, th in enumerate(s.thresholds(s.iters(i))):
+    ths = s.thresholds(s.iters(i))
+    for m, th in enumerate(ths):
         warped = warp(right, state[0], state[1], s.interp)
-        state = direction_update(left, warped, bl2, state, th,
-                                 coarsest and m == 0, s.conf)
-        state = smooth(state, n_smooth)
-    return state
+        new = direction_update(left, warped, bl2, state, th,
+                               coarsest and m == 0, s.conf)
+        new = smooth(new, n_smooth)
+        if exits:
+            go_on = changed_enough(weighted_difference(new[0], state[0],
+                                                       new[2]),
+                                   weighted_difference(new[1], state[1],
+                                                       new[2]), thr)
+            if not go_on:
+                return new, m + 1
+        state = new
+    return state, len(ths)
 
 
 def match_pair(left: torch.Tensor, right: torch.Tensor,
                fields: Mapping[str, object], foveated: bool,
-               dtype: torch.dtype = torch.float32) -> Dict[str, torch.Tensor]:
+               dtype: torch.dtype = torch.float32,
+               exit_above_px: Optional[int] = None) -> Dict[str, object]:
     """One pair, (3, H, W) images of any dtype on any device.  Mode 1:
     ``{"triplet": (3, H, W)}``; mode 2 (``foveated``): ``{"stack": (3, k *
     fh, fw), "stack_left", "stack_right": (k * 3 * fh, fw)}``, k =
-    fovea_level, the levels level-major (UG_GPU_matcher.cpp:163-369)."""
+    fovea_level, the levels level-major (UG_GPU_matcher.cpp:163-369).
+    Both also hold ``iterations``, the iterations each level ran (index
+    0 the finest), and ``exit_levels``, the levels that could exit early:
+    those larger than ``exit_above_px`` pixels (the configuration's
+    level-resident gate), where early exit is on."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     s = Schedule(fields)
@@ -403,8 +467,12 @@ def match_pair(left: torch.Tensor, right: torch.Tensor,
     disp = torch.zeros((3,) + tuple(dims[n - 1]), dtype=dtype,
                        device=left.device)
     levels: List[torch.Tensor] = [None] * n  # type: ignore[list-item]
+    iterations = [0] * n
+    exit_levels = [i for i in range(n)
+                   if s.exits(i, dims[i][0] * dims[i][1], exit_above_px)]
     for i in range(n - 1, -1, -1):
-        disp = match_level(lp[i], rp[i], disp, i, s, i == n - 1)
+        disp, iterations[i] = match_level(lp[i], rp[i], disp, i, s,
+                                          i == n - 1, i in exit_levels)
         levels[i] = disp
         if i == 0:
             break
@@ -414,8 +482,10 @@ def match_pair(left: torch.Tensor, right: torch.Tensor,
             fh, fw = disp.shape[-2:]
             disp = _upsample(disp, fh, fw, s, row_off=big_h // 2 - fh // 2,
                              col_off=big_w // 2 - fw // 2)
+    counts = {"iterations": iterations, "exit_levels": exit_levels}
     if not foveated:
-        return {"triplet": levels[0]}
+        return {"triplet": levels[0], **counts}
     return {"stack": torch.cat(levels[:k], dim=-2),
             "stack_left": torch.cat([x.flatten(0, 1) for x in lp[:k]]),
-            "stack_right": torch.cat([x.flatten(0, 1) for x in rp[:k]])}
+            "stack_right": torch.cat([x.flatten(0, 1) for x in rp[:k]]),
+            **counts}

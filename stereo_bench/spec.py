@@ -73,8 +73,11 @@ def load(workload: str, root: Path = ROOT) -> Cell:
 def _check_declared(cname: str, config: dict, mix: str, traffic: dict
                     ) -> None:
     """Refuse a declaration that the harness would not keep: a loop
-    other than LOOP, or guarantees that the matcher's fields contradict
-    (the harness runs with TF32 as ``guarantees["tf32"]`` says)."""
+    other than LOOP, guarantees that the matcher's fields contradict
+    (the harness runs with TF32 as ``guarantees["tf32"]`` says), an
+    early-exit schedule without the gate of the levels that may exit,
+    or an iteration count that the sample cannot judge (a batch call's
+    count covers every pair of the call, so every pair is judged)."""
     if traffic.get("loop") != LOOP:
         raise ValueError(f"traffic {mix!r}: the harness drives {LOOP}, "
                          f"not {traffic.get('loop')}")
@@ -82,10 +85,21 @@ def _check_declared(cname: str, config: dict, mix: str, traffic: dict
     if g["dtype"] != m["dtype"]:
         raise ValueError(f"configuration {cname!r}: guarantees dtype "
                          f"{g['dtype']} but the matcher's is {m['dtype']}")
-    if (g["schedule"] == "fixed") != (m["early_exit_delta"] is None):
+    schedule = "fixed" if m["early_exit_delta"] is None else "early_exit"
+    if g["schedule"] != schedule:
         raise ValueError(f"configuration {cname!r}: schedule "
                          f"{g['schedule']!r} against early_exit_delta "
                          f"{m['early_exit_delta']}")
+    if schedule == "early_exit" and not isinstance(
+            g.get("exit_levels_above_px"), int):
+        raise ValueError(f"configuration {cname!r}: an early-exit schedule "
+                         f"states exit_levels_above_px")
+    if "iterations_gap" in config["limits"] and \
+            traffic["entry"] == "match_batch" and \
+            traffic["sample"].get("pairs", traffic["pairs_per_call"]) < \
+            traffic["pairs_per_call"]:
+        raise ValueError(f"traffic {mix!r}: iterations_gap compares a "
+                         f"call's count, so its sample judges every pair")
 
 
 def reader(metric: str, root: Path = ROOT

@@ -13,14 +13,17 @@ from ug_stereomatcher_tpu_torch.parallel import batch as batch_mod
 
 def test_sound_runs_are_correct():
     for cell in ("ugsm_mode1.single", "ugsm_foveated.single",
-                 "ugsm_mode1.single_resident"):
+                 "ugsm_mode1.single_resident",
+                 "ugsm_mode1_bilinear_ee.single",
+                 "ugsm_mode1_bilinear_ee.single_resident"):
         assert cpu_run(cell)["correct"] is True
 
 
 def test_a_step_that_returns_its_state_unchanged(monkeypatch):
     monkeypatch.setattr(match_mod, "match_level",
                         lambda left, right, disp, *a, **k: disp)
-    for cell in ("ugsm_mode1.single", "ugsm_foveated.single"):
+    for cell in ("ugsm_mode1.single", "ugsm_foveated.single",
+                 "ugsm_mode1_bilinear_ee.single"):
         res = cpu_run(cell)
         assert res["correct"] is False, res["check"]
 
@@ -63,7 +66,8 @@ def test_the_exchange_between_cards_left_out(monkeypatch, tmp_path):
 
 @pytest.mark.parametrize("cell", ["ugsm_mode1.single",
                                   "ugsm_foveated.single",
-                                  "ugsm_mode1.batch8"])
+                                  "ugsm_mode1.batch8",
+                                  "ugsm_mode1_bilinear_ee.single"])
 def test_an_answer_altered_where_it_is_produced(monkeypatch, cell):
     orig = match_mod.match_pyramid
 

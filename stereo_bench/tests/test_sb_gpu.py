@@ -18,7 +18,9 @@ def card():
 @pytest.mark.parametrize("workload", ["ugsm_mode1.single",
                                       "ugsm_foveated.single",
                                       "ugsm_mode1.batch8",
-                                      "ugsm_mode1.single_resident"])
+                                      "ugsm_mode1.single_resident",
+                                      "ugsm_mode1_bilinear_ee.single",
+                                      "ugsm_mode1_bilinear_ee.single_resident"])
 @pytest.mark.parametrize("traced", [False, True])
 def test_short_run_on_the_card(card, workload, traced):
     over = {"frame": [480, 640], "pool": 2, "warmup_calls": 2,
